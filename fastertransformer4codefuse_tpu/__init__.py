@@ -1,13 +1,13 @@
-"""fastertransformer4codefuse_tpu — a TPU-native inference framework with the
+"""fastertransformer4codefuse_tpu — an inference framework in JAX with the
 capabilities of codefuse-ai/FasterTransformer4CodeFuse, built from scratch on
-JAX / XLA / Pallas / pjit.
+JAX / XLA / Pallas, running on NVIDIA GPUs.
 
 Capability map (reference -> here):
   GPT-NeoX CUDA engine            -> models.gptneox + engine.GptNeoXEngine
-  CUTLASS fpA-intB int8 GEMM      -> ops.quant_matmul (Pallas fused dequant matmul)
-  TRT fused MHA / masked-MHA      -> ops.flash_prefill / ops.flash_decode (Pallas)
+  CUTLASS fpA-intB int8 GEMM      -> ops.linear (XLA int8-convert GEMM)
+  TRT fused MHA / masked-MHA      -> ops.attention (cuDNN) / ops.flash_decode (Pallas, Triton)
   DynamicDecodeLayer              -> sampling.processors + sampling.sample + sampling.beam
-  NCCL tensor/pipeline parallel   -> parallel.mesh + GSPMD shardings over ICI
+  NCCL tensor/pipeline parallel   -> parallel.sharding + GSPMD shardings (NCCL)
   HF converter / int8 quantizer   -> ckpt.convert / ckpt.quantize
   pybind streaming callback       -> engine streaming mode (host token taps)
   CodeFuseHandler / Trie / detok  -> api.handler / api.trie / api.detok

@@ -139,8 +139,7 @@ class CodeFuseHandler:
                 # must track per-token log-probs (return_cum_log_probs)
                 kw.setdefault("return_log_probs", True)
                 # serving default: overlap the device→host sync with the next
-                # tick's compute (measured 1.6-1.8x aggregate on the handler
-                # path; engine/batcher.py pipeline_ticks). Streaming emissions
+                # tick's compute (engine/batcher.py pipeline_ticks). Streaming emissions
                 # lag one tick (~tens of ms); pass pipeline_ticks=False to
                 # serialize.
                 kw.setdefault("pipeline_ticks", True)

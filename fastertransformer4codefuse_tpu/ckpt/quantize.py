@@ -10,10 +10,9 @@ Rebuilds the reference's quantizer stack:
 
 Layout difference (deliberate): the reference preprocesses the int8 payload
 into a CUTLASS tensor-core interleaved layout (permute rows for LDSM, subbyte
-transpose, add_bias_and_interleave — cutlass_preprocessors.cc). TPU kernels
-read plain row-major [K, N]; the "preprocessing" a TPU wants is just tiling
-alignment, which the Pallas kernel handles at run time. ``.q.bin`` files here
-are therefore plain row-major and NOT interchangeable with the reference's.
+transpose, add_bias_and_interleave — cutlass_preprocessors.cc). The XLA GEMMs
+here read plain row-major [K, N], so ``.q.bin`` files are plain row-major and
+NOT interchangeable with the reference's.
 """
 from __future__ import annotations
 
@@ -52,8 +51,8 @@ def quantize_array(
 
     bits=8: ``scale[n] = max_k |w[k, n]| / 127``; ``q = round(w / scale)``.
     bits=4: scale uses /7, values clip to [-8, 7] and adjacent K-row pairs pack
-    per byte (row 2i in the low nibble, row 2i+1 in the high — the TPU int4
-    bitcast order, see QuantizedTensor.bits). Zero columns get scale 1 to avoid
+    per byte (row 2i in the low nibble, row 2i+1 in the high, see
+    QuantizedTensor.bits). Zero columns get scale 1 to avoid
     division by zero (the reference clamps the same way).
 
     Group-wise int4 scales are rounded to ``group_scale_dtype`` FIRST and the
@@ -147,15 +146,12 @@ def quantize_lm_head_int4(w: jax.Array, tile: int = 2560) -> QuantizedTensor:
     """Int4 LM head in the kernel-feeding layout.
 
     The int8 LM head keeps HF's ``[V, H]`` with per-row scales, but int4
-    nibble-packing must run along the CONTRACTION axis (H), and the TPU
-    bitcast unpack doubles the sublane axis — so the int4 head is stored
+    nibble-packing must run along the CONTRACTION axis (H) — so the int4 head is stored
     TRANSPOSED ``[H, V_pad]`` (packed ``[H/2, V_pad]``, k_axis=-2, per-column
-    scales = per-vocab-row), with V padded up to a multiple of ``tile`` so the
-    Pallas grid gets wide divisor tiles (a 128-lane pad leaves vocab sizes
-    like 100864 = 2^9*197 with no usable divisor > 512, and the resulting
-    262KB tile DMAs ran the head at ~24% of HBM SoL; 2560-wide tiles measured
-    ~3.5x faster for +0.8% pad bytes). ``lm_logits`` slices the pad columns
-    back off. Same scale math as the reference quantizer
+    scales = per-vocab-row), with V padded up to a multiple of ``tile`` (a
+    2560 multiple divides evenly under every supported tensor-parallel
+    degree). ``lm_logits`` slices the pad
+    columns back off. Same scale math as the reference quantizer
     (WeightOnlyQuantOps.cc:140-233) at int4 width; layout is kernel-defined as
     on the CUTLASS side (cutlass_preprocessors.cc)."""
     V, H = w.shape

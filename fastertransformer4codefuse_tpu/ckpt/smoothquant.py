@@ -21,7 +21,7 @@ SmoothQuant paper applies to GPT blocks.
 
 Runtime: engine ``RuntimeConfig(act_int8=True)`` routes batch-wide GEMMs
 (prefill, chunked prefill) through ops/linear.w8a8_matmul — per-token dynamic
-activation int8 + int8xint8 MXU dot (2x the bf16 MXU rate on TPU) + fp32
+activation int8 + int8 x int8 dot (twice the bf16 tensor-core rate) + fp32
 requant epilogue. Decode-width calls keep the weight-only path (they are
 weight-bytes-bound; activation quantization there saves nothing).
 

@@ -1,6 +1,6 @@
 """Model and runtime configuration.
 
-TPU-native re-design of the reference's three config tiers
+A re-design of the reference's three config tiers
 (/root/reference/examples/pytorch/codefuse/huggingface_convert.py:107-122 writes
 ``config.ini``; /root/reference/examples/pytorch/codefuse/codefuse_example.py:621-632
 reads it).  We keep the on-disk ``config.ini`` format byte-compatible so checkpoints
@@ -191,8 +191,7 @@ class GptNeoXConfig:
         that formula in its FFN kernel (activation_kernels.cu:50-57
         GeluActivation), so serving CodeFuse through FasterTransformer always
         runs tanh-gelu regardless of the HF config's exact-erf "gelu". This
-        preset matches the reference's serving numerics (and tanh-gelu fuses
-        into the Pallas up-GEMM epilogue; exact erf cannot lower in Mosaic).
+        preset matches the reference's serving numerics.
         Checkpoints converted from HF keep hidden_act verbatim instead
         (ckpt/convert.py) for HF-exact parity."""
         return cls(
@@ -248,8 +247,8 @@ class RuntimeConfig:
     """Engine runtime knobs (the analog of the reference's env-var tier, SURVEY §5).
 
     Attributes:
-      dtype: activation/weight compute dtype ("bf16"|"fp32"). The reference serves
-        fp16; on TPU the native 16-bit type is bfloat16.
+      dtype: activation/weight compute dtype ("bf16"|"fp32"). The reference
+        serves fp16; "fp16" is served as bf16 (core/dtypes.py).
       int8_mode: 0 = dense, 1 = weight-only int8 (per-output-channel symmetric
         scales), matching the reference's ``int8_mode`` values
         (/root/reference/src/fastertransformer/models/gptneox/GptNeoX.h int8_mode_).
@@ -257,13 +256,12 @@ class RuntimeConfig:
       max_batch_size / max_seq_len: static upper bounds used to pre-allocate.
       seq_bucket: generation shapes are padded up to a multiple of this to bound
         the number of distinct compiled programs.
-      use_pallas: route int8 matmuls through the stacked scalar-prefetch
-        Pallas fused dequant kernel. Default True: the stacked kernel with
-        bk=2048 tiles + fused bias epilogue runs at ~91% of the DMA floor
-        (141us vs 128 on the 13B up/down GEMMs), ahead of XLA's
-        convert-into-dot composition (~79% end-to-end). (The round-1 sliced
-        kernel that lost to XLA materialized a per-layer weight copy; the
-        scalar-prefetch rewrite is why the default flipped.)
+      use_flash_prefill: on the GPU, run prefill attention through cuDNN's
+        fused attention (ops/attention.prefill_attention_fused) instead of
+        the einsum path.
+      use_flash_decode: on the GPU, run decode attention through the Triton
+        decode kernel (ops/flash_decode.py), which reads only live cache
+        bytes, instead of the XLA path over the whole slab.
       tensor_para_size: TP degree (mesh axis "tp").
       data_para_size: replica axis (mesh axis "dp").
       pipeline_para_size: PP stage count (mesh axis "pp"); layers and KV cache
@@ -276,7 +274,7 @@ class RuntimeConfig:
     dtype: str = "bf16"
     int8_mode: int = 0
     # SmoothQuant W8A8: batch-wide GEMMs (prefill / chunked prefill) quantize
-    # activations per token and run int8xint8 MXU dots against the int8
+    # activations per token and run int8 x int8 dots against the int8
     # weights — the reference's int8_mode=2 semantics (its gptneox family
     # never wired it; SURVEY §2.2). Requires int8 per-channel weights
     # (int8_mode=1); prepare checkpoints with ckpt.smoothquant's fold for
@@ -286,14 +284,8 @@ class RuntimeConfig:
     max_batch_size: int = 8
     max_seq_len: int = 2048
     seq_bucket: int = 128
-    use_pallas: bool = True
     use_flash_prefill: bool = True
     use_flash_decode: bool = True
-    # Merge the decode block's GEMM pairs (qkv+up, proj+down) into single
-    # Pallas kernels with in-kernel bias/residual epilogues
-    # (ops/quant_matmul_fused.py) — parallel-residual + stacked quantized
-    # weights on TPU only; other configs fall back automatically.
-    fused_decode: bool = True
     tensor_para_size: int = 1
     data_para_size: int = 1
     pipeline_para_size: int = 1

@@ -1,8 +1,8 @@
 """Dtype string <-> jnp dtype mapping.
 
 The reference maps "fp16"/"fp32" strings to torch dtypes
-(/root/reference/examples/pytorch/codefuse/codefuse_example.py:180). On TPU the
-native half precision is bfloat16; "fp16" is accepted as an alias for bf16 so
+(/root/reference/examples/pytorch/codefuse/codefuse_example.py:180). The engine
+serves 16-bit models in bfloat16; "fp16" is accepted as an alias for bf16 so
 reference configs keep working.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ import numpy as np
 _STR2JNP = {
     "fp32": jnp.float32,
     "float32": jnp.float32,
-    "fp16": jnp.bfloat16,  # TPU alias: fp16 checkpoints are served as bf16
+    "fp16": jnp.bfloat16,  # alias: fp16 checkpoints are served as bf16
     "float16": jnp.bfloat16,
     "bf16": jnp.bfloat16,
     "bfloat16": jnp.bfloat16,

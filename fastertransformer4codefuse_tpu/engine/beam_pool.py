@@ -21,8 +21,7 @@ Per-tick structure (mirrors the one-shot beam loop, sampling/beam.py):
 
 The cache stays FIXED; beam reassignment only ever moves the [rows, S] int32
 indirection — never the multi-GB KV slabs. Decode attention resolves the
-indirection in-kernel (ops/flash_decode.flash_decode_beam_stacked on TPU,
-engine/kv_cache.attend_decode_beam's one-hot selects elsewhere).
+indirection with one-hot selects (engine/kv_cache.attend_decode_beam).
 
 Not supported here (falls back to the static path in the handler): paged KV
 (beam indirection addresses row-contiguous slabs), pipeline parallelism,
@@ -59,7 +58,6 @@ class BeamPool(ContinuousBatcher):
         bad_words_width: int = 16,
         optional_last_width: int = 8,
         return_log_probs: bool = False,
-        flash_decode: str = "on",
         pipeline_ticks: bool = False,
     ):
         assert beam_width >= 2, "beam_width 1 is the sampling pool"
@@ -74,7 +72,6 @@ class BeamPool(ContinuousBatcher):
             bad_words_width=bad_words_width,
             optional_last_width=optional_last_width,
             return_log_probs=return_log_probs,
-            flash_decode=flash_decode,
             paged=None,
             pipeline_ticks=pipeline_ticks,
         )
@@ -154,7 +151,7 @@ class BeamPool(ContinuousBatcher):
             )
             return st
 
-        self._admit_fn = jax.jit(admit, donate_argnums=(0,))
+        self._admit_fn = self.engine.jit(admit, donate_argnums=(0,))
         return self._admit_fn
 
     def _admit(self, r: Request, slot: int) -> None:

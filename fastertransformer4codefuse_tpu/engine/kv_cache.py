@@ -2,7 +2,7 @@
 
 The analog of the reference's key_cache_/value_cache_ buffers
 (/root/reference/src/fastertransformer/models/gptneox/GptNeoX.cc:84-156,
-including its x16-byte vectorized K layout, GptNeoX.cc:551-561 — on TPU the
+including its x16-byte vectorized K layout, GptNeoX.cc:551-561 — here the
 layout question reduces to keeping [S, dh] contiguous per (batch, head)).
 
 INT8 mode stores one symmetric scale per cached vector (per layer, batch,
@@ -10,8 +10,7 @@ head, position), halving the HBM traffic of decode attention — the analog of
 BitDecoding/KV-quant practice; the reference has no KV quantization at all.
 
 INT4 mode goes further: adjacent SEQUENCE positions pack two-per-byte (slot
-2i in the low nibble — the TPU ``bitcast(int4)`` row order the weight kernels
-use), quartering the bf16 cache's decode-attention bytes. Packed slabs use
+2i in the low nibble, 2i+1 in the high), quartering the bf16 cache's decode-attention bytes. Packed slabs use
 the keys ``k4``/``v4`` ([L,B,nKV,S/2,dh] int8) so every consumer can tell the
 format from the pytree alone; scales stay per UNPACKED position. Because K's
 quantization error lands inside the softmax logits while V's only blurs the
@@ -29,6 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core.config import GptNeoXConfig
+from ..ops import flash_decode, routes
 
 Cache = Dict[str, jax.Array]
 
@@ -115,7 +115,8 @@ def _pack_seq_pairs(q: jax.Array, axis: int = -2) -> jax.Array:
 
 def _unpack_seq_pairs(p: jax.Array, axis: int = -2) -> jax.Array:
     """Inverse of _pack_seq_pairs: [.., S/2, ..] int8 -> [.., S, ..] int8 with
-    sign-extended nibbles (XLA fallback paths; the Pallas kernels bitcast)."""
+    sign-extended nibbles (the XLA paths; the decode kernel splits the
+    nibbles in registers)."""
     lo = jnp.left_shift(p, 4) >> 4  # arithmetic shift sign-extends
     hi = p >> 4
     stacked = jnp.stack([lo, hi], axis=axis % p.ndim + 1)
@@ -125,7 +126,7 @@ def _unpack_seq_pairs(p: jax.Array, axis: int = -2) -> jax.Array:
 
 
 def _unpack_layer(cache_l: Cache) -> Cache:
-    """Layer view with packed slabs expanded to int8 (XLA fallback paths)."""
+    """Layer view with packed slabs expanded to int8 (the XLA paths)."""
     out = dict(cache_l)
     if "k4" in out:
         out["k"] = _unpack_seq_pairs(out.pop("k4"))
@@ -141,7 +142,7 @@ def write_prefill(cache: Cache, layer: jax.Array, k: jax.Array, v: jax.Array) ->
     The cache is threaded through the layer scan as carry and updated with
     dynamic-update-slices at the layer index — passing per-layer slices through
     scan xs/ys instead forces XLA to re-assemble (copy) the whole stacked slab
-    every engine step (observed 2x640us/step on 13B)."""
+    every engine step."""
     kt = k.transpose(0, 2, 1, 3)[None]
     vt = v.transpose(0, 2, 1, 3)[None]
     out = dict(cache)
@@ -206,21 +207,43 @@ def write_prefix(cache: Cache, k_pre: jax.Array, v_pre: jax.Array) -> Cache:
 
 
 # Above this batch size, per-token cache writes use ONE batched scatter per
-# slab; at or below it, B unrolled dynamic-update-slices. Measured on v5e 13B:
-# the unrolled DUS path aliases in place and is faster at bench batch sizes
-# (the scatter lowering cost the b1 int8/int4 configs 2-5% end-to-end), while
-# the batcher's B=32 pool needs the O(1)-ops scatter to keep the step program
-# from bloating (VERDICT r2 item 10).
+# slab; at or below it, B unrolled dynamic-update-slices, which alias in
+# place. A wide pool (B=32) needs the O(1)-ops scatter to keep the step
+# program from bloating.
 _SCATTER_MIN_B = 8
+
+
+def _scatter_rows(B: int) -> bool:
+    return B > _SCATTER_MIN_B
+
+
+def _scatter_tokens(slab: jax.Array, layer, rows: jax.Array, cols: jax.Array,
+                    new: jax.Array) -> jax.Array:
+    """slab[layer, rows[i], :, cols[i]] = new[i] for slab [L, B, nH, S(, dh)]
+    and new [N, nH(, dh)]; out-of-bounds ``cols`` are dropped.
+
+    The index vector names every slab axis in order (head and dh offsets 0).
+    ``slab.at[layer, rows, :, cols]`` names axes (0, 1, 3) only, and XLA's
+    scatter canonicalization then moves those axes to the front: two
+    transposes of the whole stacked slab (all layers) per write."""
+    zero = jnp.zeros_like(rows)
+    idx = [jnp.full_like(rows, layer), rows, zero, cols] + [zero] * (slab.ndim - 4)
+    dnums = jax.lax.ScatterDimensionNumbers(
+        update_window_dims=tuple(range(1, slab.ndim - 2)),
+        inserted_window_dims=(0, 1, 3),
+        scatter_dims_to_operand_dims=tuple(range(slab.ndim)),
+    )
+    return jax.lax.scatter(
+        slab, jnp.stack(idx, axis=-1), new.astype(slab.dtype), dnums,
+        unique_indices=True, mode=jax.lax.GatherScatterMode.FILL_OR_DROP,
+    )
 
 
 def _row_update(slab: jax.Array, layer, new: jax.Array, positions: jax.Array):
     """slab[layer, b, :, positions[b]] = new[b] for slab [L, B, nH, S, ...]."""
     B = new.shape[0]
-    if B > _SCATTER_MIN_B:
-        return slab.at[layer, jnp.arange(B), :, positions].set(
-            new, indices_are_sorted=True, unique_indices=True
-        )
+    if _scatter_rows(B):
+        return _scatter_tokens(slab, layer, jnp.arange(B), positions, new)
     for b in range(B):  # small B: unrolled in-place DUS (see _SCATTER_MIN_B)
         if slab.ndim == 4:  # scale slab [L, B, nH, S], new [B, nH]
             upd = new[b][None, None, :, None]
@@ -236,13 +259,12 @@ def _read_rows(slab: jax.Array, layer, positions: jax.Array) -> jax.Array:
     """slab[layer, b, :, positions[b]] -> [B, nH] or [B, nH, dh].
 
     Unrolled per-row dynamic slices, NOT an advanced-indexing gather: the
-    gather's XLA lowering prefers the slab position-major, and in a program
-    that also runs a (canonical-operand) Pallas kernel that preference
-    materializes as two full-slab relayout copies per LAYER (measured 131 vs
-    16 ms/step on the 13B beam-2 path when the grouped flash-beam kernel
-    landed). Dynamic slices are layout-agnostic."""
+    gather's XLA lowering may prefer the slab position-major, and in a
+    program that also runs a Pallas kernel on the slab that preference
+    materializes as full-slab relayout copies per layer. Dynamic slices are
+    layout-agnostic."""
     B = positions.shape[0]
-    if B > _SCATTER_MIN_B * 2:  # very wide: keep the single-gather form
+    if B > _SCATTER_MIN_B * 2:  # single gather
         return slab[layer, jnp.arange(B), :, positions]
     rows = []
     for b in range(B):
@@ -282,9 +304,7 @@ def write_decode(
       [pos, pos+C) before those become valid), and crucially LAYOUT-NEUTRAL:
       the preserve gather's XLA lowering wants the slab position-major, which
       in the pool's per-tick program materialized as two full-slab relayout
-      copies per LAYER (profiled 2 x 206 ms/tick at 13B B=8/S=1024 — the real
-      cause of the r3 "flash decode in the pool" regression; the Pallas flash
-      kernel itself demands canonical operands)."""
+      copies per LAYER)."""
     if "pt" in cache:
         # paged pool: skip rows write the garbage page (layout-neutral, like
         # sacrifice_last — see engine/paged_kv.py); skip_mode is moot
@@ -360,63 +380,33 @@ def write_chunk(
         "the continuous batcher requires an unpacked KV cache (int8/bf16): "
         "per-row chunk offsets may straddle int4 position-pair bytes"
     )
-    kt = k.transpose(0, 2, 1, 3)  # [B, nH, C, dh]
-    vt = v.transpose(0, 2, 1, 3)
     out = dict(cache)
-    B, nH, C, dh = kt.shape
+    B, C = k.shape[:2]
 
-    if B > _SCATTER_MIN_B:
-        # batched scatter (see _SCATTER_MIN_B): one op per slab. Inactive
-        # rows' indices are pushed out of bounds and dropped — their cache
-        # bytes stay untouched without a read-modify-write.
-        S = cache["k"].shape[3]
-        cols = jnp.where(active, pos, S)[:, None] + jnp.arange(C)[None, :]
-        rows = jnp.arange(B)[:, None]
+    # one batched scatter per slab, one token per index. Inactive rows'
+    # indices are pushed out of bounds and dropped, so their cache bytes stay
+    # untouched without a read-modify-write. (Unrolled per-row
+    # read-modify-write slices gave wrong cache contents inside the pool's
+    # programs on the H100, PERF.md.)
+    S = cache["k"].shape[3]
+    cols = (jnp.where(active, pos, S)[:, None] + jnp.arange(C)[None, :]).reshape(-1)
+    rows = jnp.repeat(jnp.arange(B), C)
 
-        def supd(slab, new):  # new [B, nH, C(, dh)] -> write [B, C, nH(, dh)]
-            vals = jnp.moveaxis(new, 2, 1).astype(slab.dtype)
-            return slab.at[layer, rows, :, cols].set(
-                vals, mode="drop", unique_indices=True
-            )
-
-        if quantized(cache):
-            kq, ks = _quantize_vec(kt)
-            vq, vs = _quantize_vec(vt)
-            out["k"], out["v"] = supd(cache["k"], kq), supd(cache["v"], vq)
-            out["k_s"], out["v_s"] = supd(cache["k_s"], ks), supd(cache["v_s"], vs)
-        else:
-            out["k"], out["v"] = supd(cache["k"], kt), supd(cache["v"], vt)
-        return out
-
-    def upd(slab, new, b, p, a):
-        if slab.ndim == 5:
-            idx = (layer, b, 0, p, 0)
-            sizes = (1, 1, nH, C, dh)
-        else:  # scale slab [L, B, nH, S]
-            idx = (layer, b, 0, p)
-            sizes = (1, 1, nH, C)
-        old = jax.lax.dynamic_slice(slab, idx, sizes)
-        newe = jnp.where(a, new[None, None].astype(slab.dtype), old)
-        return jax.lax.dynamic_update_slice(slab, newe, idx)
+    def supd(slab, new):  # new [B, C, nH(, dh)] -> tokens [B*C, nH(, dh)]
+        return _scatter_tokens(slab, layer, rows, cols, new.reshape((B * C,) + new.shape[2:]))
 
     if quantized(cache):
-        kq, ks = _quantize_vec(kt)
-        vq, vs = _quantize_vec(vt)
-        for b in range(B):
-            out["k"] = upd(out["k"], kq[b], b, pos[b], active[b])
-            out["v"] = upd(out["v"], vq[b], b, pos[b], active[b])
-            out["k_s"] = upd(out["k_s"], ks[b], b, pos[b], active[b])
-            out["v_s"] = upd(out["v_s"], vs[b], b, pos[b], active[b])
+        kq, ks = _quantize_vec(k)
+        vq, vs = _quantize_vec(v)
+        out["k"], out["v"] = supd(cache["k"], kq), supd(cache["v"], vq)
+        out["k_s"], out["v_s"] = supd(cache["k_s"], ks), supd(cache["v_s"], vs)
     else:
-        for b in range(B):
-            out["k"] = upd(out["k"], kt[b], b, pos[b], active[b])
-            out["v"] = upd(out["v"], vt[b], b, pos[b], active[b])
+        out["k"], out["v"] = supd(cache["k"], k), supd(cache["v"], v)
     return out
 
 
 def attend_chunk(
     cache: Cache, layer, q: jax.Array, valid: jax.Array, sm_scale: float,
-    positions=None,  # [B] chunk START slots — enables the paged chunk kernel
 ) -> jax.Array:
     """C-query attention over layer ``layer`` of the full cache.
 
@@ -430,25 +420,6 @@ def attend_chunk(
         from . import paged_kv as _paged
 
         nKV = _paged._slab(cache, "pk").shape[2]
-        packed = _paged.packed4(cache, "pk") or _paged.packed4(cache, "pv")
-        if (
-            _FLASH_DECODE
-            and positions is not None
-            and dh in (128, 256)
-            and seq_len_of(cache) >= _FLASH_MIN_S[_paged.quantized(cache)]
-            and nH % nKV == 0
-            and (not packed or _paged.page_size(cache) >= 256)  # sublane tile
-        ):
-            # paged chunk kernel: per-row consecutive-position bounds, GQA
-            # handled in-kernel — dispatch BEFORE the GQA fold below (the
-            # fold interleaves query positions, breaking consecutiveness)
-            from ..ops.flash_decode import flash_chunk_paged
-
-            return flash_chunk_paged(
-                q, _paged._slab(cache, "pk"), cache.get("pk_s"),
-                _paged._slab(cache, "pv"), cache.get("pv_s"),
-                layer, positions, cache["pt"], sm_scale=sm_scale,
-            )
     else:
         nKV = cache["k_s"].shape[2] if "k_s" in cache else cache["k"].shape[2]
     if nH != nKV:
@@ -467,8 +438,8 @@ def attend_chunk(
     if "pt" in cache:
         # chunk-prefill attention over the paged pool: gather the pages into
         # a dense per-layer view (leading-axis page gather, layout-neutral —
-        # paged_kv.gather_layer_dense). Only chunk ticks pay this; decode
-        # ticks ride the paged flash kernel without materializing it.
+        # paged_kv.gather_layer_dense). On the GPU, decode ticks ride the
+        # paged decode kernel without materializing it.
         from . import paged_kv as _paged
 
         cache_l = _paged.gather_layer_dense(cache, layer)
@@ -499,45 +470,6 @@ def attend_chunk(
 
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 
-# engine-set: route decode attention through the Pallas flash-decode kernel
-_FLASH_DECODE = False
-
-# Static cache-length gates: below these the XLA fused path wins — the Pallas
-# kernel pays ~8-10us of fixed per-call cost (grid setup + scalar prefetch)
-# that a tiny cache read never amortizes. Measured on v5e 13B: enabling the
-# kernel unconditionally regressed the 64in/32out bench 48->34 tok/s (S=96
-# slab), while at S>=1088 int8 it wins. bf16 caches move 2x the bytes per
-# position, so the XLA path stays competitive longer (1536-slab bench was
-# still a wash); the kernel's per-chunk DMA clamp starts paying at longer S.
-_FLASH_MIN_S = {True: 512, False: 2048}  # keyed by quantized(cache)
-
-
-def set_flash_decode(flag: bool) -> None:
-    global _FLASH_DECODE
-    _FLASH_DECODE = bool(flag)
-
-
-import contextlib as _contextlib
-
-
-@_contextlib.contextmanager
-def flash_decode_disabled():
-    """Trace-time flash-decode override for programs whose cache crosses a
-    jit boundary every step (the continuous batcher). The flash kernel wants
-    the cache in a heads-minor physical layout; inside ONE jitted program
-    XLA's layout assignment propagates it to the whole cache for free, but a
-    per-tick program gets the canonical boundary layout and re-lays-out the
-    FULL K/V slabs every layer (measured: 2 x 103ms/step of s8[40,8,40,512,
-    128] {4,2,3,1,0} copies at pool B=8 — 4x the whole step's useful work).
-    The XLA attend path reads the canonical layout in place."""
-    global _FLASH_DECODE
-    old = _FLASH_DECODE
-    _FLASH_DECODE = False
-    try:
-        yield
-    finally:
-        _FLASH_DECODE = old
-
 
 def attend_decode_beam(
     cache: Cache,
@@ -547,7 +479,6 @@ def attend_decode_beam(
     sm_scale: float,
     indir: jax.Array,  # [BB, S] int32 in [0, bw)
     bw: int,
-    positions=None,  # [BB] newest-token slots (enables the Pallas kernel)
 ) -> jax.Array:
     """Beam decode attention over a FIXED cache with per-position indirection.
 
@@ -557,7 +488,7 @@ def attend_decode_beam(
     physically reordering the [L, BB, nH, S, dh] cache every step, each beam's
     past position s reads physical row ``indir[b, s]`` within its beam group.
 
-    TPU formulation: scores are computed all-pairs within the group
+    Scores are computed all-pairs within the group
     (target beam j x physical row c) so each cache byte is read ONCE per group,
     then the indirection one-hot selects the right row per position. FLOPs grow
     bw-fold but decode attention is HBM-bound — the eliminated full-cache
@@ -567,36 +498,7 @@ def attend_decode_beam(
     extra einsum axis, so the cache bytes are still read once per beam group —
     the reference decode kernel's head-grouping + cache_indir combination
     (decoder_masked_multihead_attention_template.hpp head_num/kv_head_num).
-
-    At kernel-eligible shapes (MHA, dh 128/256, long unpacked caches) the
-    Pallas grouped-beam kernel takes over: same per-group single read of the
-    cache bytes, but with in-kernel indirection selects, online softmax, and
-    length-proportional chunk streaming (ops/flash_decode.py
-    flash_decode_beam_stacked — the cache_indir analog of the reference's
-    decoder_masked_multihead_attention).
     """
-    nH_q, dh_q = q.shape[1], q.shape[2]
-    nKV_c = cache["k_s"].shape[2] if "k_s" in cache else cache["k"].shape[2]
-    if (
-        _FLASH_DECODE
-        and positions is not None
-        and nH_q == nKV_c
-        and dh_q in (128, 256)
-        and not (packed4(cache, "k") or packed4(cache, "v"))
-        and seq_len_of(cache) >= _FLASH_MIN_S[quantized(cache)]
-        and bw <= 8
-        # TOTAL rows, not just bw: above _SCATTER_MIN_B write_decode takes
-        # the batched scatter whose position-major layout preference
-        # conflicts with the kernel's canonical operands (the r3 full-slab
-        # relayout disease — same reason wide dense pools gate flash off)
-        and q.shape[0] <= _SCATTER_MIN_B
-    ):
-        from ..ops.flash_decode import flash_decode_beam_stacked
-
-        return flash_decode_beam_stacked(
-            q, cache["k"], cache.get("k_s"), cache["v"], cache.get("v_s"),
-            layer, positions, indir, bw, sm_scale=sm_scale,
-        )
     cache_l = _unpack_layer({
         k: jax.lax.dynamic_index_in_dim(v, layer, axis=0, keepdims=False)
         for k, v in cache.items()
@@ -631,8 +533,7 @@ def attend_decode_beam(
     # read unmasked — the indirection contract is that ind[j, s] only selects
     # rows whose written extent covers s (true for real beam histories: an
     # ancestor live at step s wrote position s). Engine caches are zero-init,
-    # so even unreferenced unwritten slots are finite; the Pallas beam kernel
-    # additionally zeroes each row's own tail defensively.
+    # so even unreferenced unwritten slots are finite.
     pc = jnp.einsum("bjhgs,bjcs->bjchgs", probs, sel)
     if quantized(cache_l):
         v_s = cache_l["v_s"].reshape(B, 1, bw, nKV, 1, S).astype(jnp.float32)
@@ -661,66 +562,42 @@ def attend_decode(
     The layer dynamic-slice fuses into the contractions (read-only).
     """
     S = seq_len_of(cache)
+    # routes.flash_decode: the Triton kernel (ops/flash_decode.py) reads only
+    # each row's live positions, in place, for dense slabs and paged pools
+    route = routes.current()
     if "pt" in cache:
         from . import paged_kv as _paged
 
         assert beam is None, "paged pools do not support beam search"
         pvs = _paged._slab(cache, "pv")
         dh = pvs.shape[4]
-        nKV = pvs.shape[2]
-        packed = _paged.packed4(cache, "pk") or _paged.packed4(cache, "pv")
         if (
-            _FLASH_DECODE
+            route.flash_decode
             and positions is not None
-            and dh in (128, 256)
-            and S >= _FLASH_MIN_S[_paged.quantized(cache)]
-            and q.shape[1] % nKV == 0
-            # packed pages need >= 256 positions/page (sublane tile); smaller
-            # pages fall back to the XLA gather path instead of asserting
-            and (not packed or _paged.page_size(cache) >= 256)
+            and flash_decode.supported(S, dh, _paged.page_size(cache))
         ):
-            from ..ops.flash_decode import flash_decode_paged
-
-            return flash_decode_paged(
+            return flash_decode.flash_decode_paged(
                 q, _paged._slab(cache, "pk"), cache.get("pk_s"),
                 pvs, cache.get("pv_s"), layer, positions, cache["pt"],
-                sm_scale=sm_scale,
+                sm_scale=sm_scale, interpret=route.interpret,
             )
-        # XLA fallback (tiny pools / odd head dims): dense view via the
-        # leading-axis page gather, then the multi-query math below
+        # XLA path: dense view via the leading-axis page gather, then the
+        # multi-query math below
         out = attend_chunk(cache, layer, q[:, None], valid[:, None, :], sm_scale)
         return out[:, 0]
     dh = (cache["v4"] if "v4" in cache else cache["v"]).shape[4]
     nKV = cache["k_s"].shape[2] if "k_s" in cache else cache["k"].shape[2]
     if beam is not None:
         bw, indir = beam
-        return attend_decode_beam(
-            cache, layer, q, valid, sm_scale, indir, bw, positions=positions
-        )
-    if (
-        _FLASH_DECODE
-        and positions is not None
-        and dh in (128, 256)
-        and S >= _FLASH_MIN_S[quantized(cache)]
-        and q.shape[1] % nKV == 0
-    ):
-        # the seq-chunked kernel handles any S (ragged tail masked), int8 /
-        # packed-int4 / float caches, any batch, and GQA (nKV < nH: the
-        # per-KV-head query dot widens from M=1 to M=g, same KV bytes);
-        # dh must fill whole lanes
-        from ..ops.flash_decode import flash_decode_stacked
-
-        return flash_decode_stacked(
+        return attend_decode_beam(cache, layer, q, valid, sm_scale, indir, bw)
+    if route.flash_decode and positions is not None and flash_decode.supported(S, dh):
+        return flash_decode.flash_decode_stacked(
             q, cache.get("k4", cache.get("k")), cache.get("k_s"),
             cache.get("v4", cache.get("v")), cache.get("v_s"),
-            layer, positions, sm_scale=sm_scale,
-            # bs=256 measured best e2e: wider 512-chunks round the
-            # length-proportional reads UP to coarser boundaries and LOST
-            # (924 vs 769 us/step at mean pos ~1056, profile_decode A/B)
+            layer, positions, sm_scale=sm_scale, interpret=route.interpret,
         )
     if q.shape[1] != nKV:
-        # GQA XLA fallback: fold the query group into attend_chunk's query axis
-        B, nH = q.shape[0], q.shape[1]
+        # GQA: fold the query group into attend_chunk's query axis
         out = attend_chunk(cache, layer, q[:, None], valid[:, None, :], sm_scale)
         return out[:, 0]
 

@@ -3,8 +3,8 @@
 The continuous batcher's dense mode reserves a CONTIGUOUS max_seq_len region
 per slot ([L, B, nKV, S, dh] slabs), so pool HBM scales with the worst-case
 length of every slot even when most requests are short — the weakness the
-length-classed multi-pool serving only coarsely mitigates. Paged mode (the
-TPU formulation of PagedAttention-style block tables) replaces the per-slot
+length-classed multi-pool serving only coarsely mitigates. Paged mode
+(PagedAttention-style block tables) replaces the per-slot
 regions with one shared page pool:
 
   - ``pk``/``pv``: [L, P, nKV, ps, dh] page-pool slabs (P pages of ps
@@ -14,11 +14,8 @@ regions with one shared page pool:
     [j*ps, (j+1)*ps) live in physical page ``pt[b, j]``.
   - page 0 is the GARBAGE page: never allocated, the write target for rows
     that must not disturb readable state (the paged analog of
-    kv_cache.write_decode's "sacrifice_last" mode — and like it,
-    layout-neutral: every paged write is a per-row dynamic-update-slice,
-    never a batched scatter, so the Pallas flash kernel's canonical operand
-    layout survives at ANY pool width; the dense pool's batched scatter is
-    why wide slab pools fall back to the XLA attend path).
+    kv_cache.write_decode's "sacrifice_last" mode; every paged write is a
+    per-row dynamic-update-slice, never a batched scatter).
 
 Allocation is reservation-based: admission reserves ceil(stop_at/ps) pages
 up front (PageAllocator), so a running request can never hit a mid-flight
@@ -30,10 +27,10 @@ The reference has no analog — its batches are static with per-batch
 contiguous caches sized by the max sequence in the batch
 (/root/reference/src/fastertransformer/models/gptneox/GptNeoX.cc:84-156).
 
-Decode attention over the paged pool rides ops/flash_decode.flash_decode_paged
-(the block-table variant of the chunked online-softmax kernel: chunk size ==
-page size, the scalar-prefetched block table resolves each grid step's page,
-clamped past the valid prefix so reads stay length-proportional).
+On the GPU, decode attention over the paged pool rides
+ops/flash_decode.flash_decode_paged (the block-table variant of the chunked
+online-softmax kernel: each program reads its row's block table and walks its
+pages only up to the row's length, so reads stay length-proportional).
 """
 from __future__ import annotations
 
@@ -175,9 +172,7 @@ def write_decode_paged(
     """Write one token per row (k, v: [B, 1, nKV, dh]) at logical position
     ``positions[b]`` -> physical (page pt[b, pos//ps], offset pos%ps).
     ``skip`` rows write the garbage page instead (layout-neutral skip; see
-    module docstring). Per-row unrolled dynamic-update-slices — paged writes
-    never use a batched scatter, so the flash kernel keeps canonical layouts
-    at any pool width."""
+    module docstring). Per-row unrolled dynamic-update-slices."""
     ps = page_size(cache)
     pt = cache["pt"]
     B = positions.shape[0]
@@ -297,12 +292,11 @@ def write_chunk_paged(
 
 def gather_layer_dense(cache: Cache, layer) -> Cache:
     """Materialize layer ``layer`` as a dense per-layer view
-    {"k": [B, nKV, S, dh], ...} by gathering each slot's pages (XLA fallback
-    paths + chunk-prefill attention; the decode hot path uses the paged flash
-    kernel instead and never materializes this). The gather indexes the
-    LEADING page axis only, so the minor [ps, dh] layout is untouched — no
-    position-major relayout pressure (the dense pool's S-axis gather pitfall,
-    kv_cache._read_rows docstring)."""
+    {"k": [B, nKV, S, dh], ...} by gathering each slot's pages (the XLA
+    attention paths and chunk-prefill attention; on the GPU the decode path
+    reads the pages in place through the decode kernel instead). The gather
+    indexes the LEADING page axis only, so the minor [ps, dh] layout is
+    untouched."""
     from .kv_cache import _unpack_seq_pairs
 
     pt = cache["pt"]

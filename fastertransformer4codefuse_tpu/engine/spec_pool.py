@@ -43,6 +43,7 @@ class SpecPool(ContinuousBatcher):
     """Slot pool whose decode tick is a (k+1)-wide speculative verify."""
 
     def __init__(self, engine, k: int = 8, ngram: int = 3, **kw):
+        engine.check_speculation()
         assert kw.get("paged") is None, "speculative pool is dense-KV only"
         assert kw.get("prompt_table") is None, (
             "speculative pool does not serve prompt learning"

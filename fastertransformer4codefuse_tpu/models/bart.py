@@ -28,7 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops.layernorm import layernorm
-from ..ops.quant_matmul_w4 import apply_act
+from ..ops.linear import apply_act
 
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 

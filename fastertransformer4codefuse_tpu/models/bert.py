@@ -1,4 +1,4 @@
-"""BERT encoder family — the reference's `bert` model class, TPU-native.
+"""BERT encoder family — the reference's `bert` model class.
 
 The reference serves BERT through its own C++ engine
 (/root/reference/src/fastertransformer/models/bert/Bert.cc — fused

@@ -26,7 +26,7 @@ import numpy as np
 
 from ..ops.layernorm import layernorm
 from ..ops.linear import linear
-from ..ops.quant_matmul_w4 import apply_act
+from ..ops.linear import apply_act
 
 
 @dataclasses.dataclass(frozen=True)

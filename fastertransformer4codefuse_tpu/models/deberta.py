@@ -1,4 +1,4 @@
-"""DeBERTa-v2 encoder family — disentangled attention, TPU-native.
+"""DeBERTa-v2 encoder family — disentangled attention.
 
 The reference ships DeBERTa as its own C++ engine
 (/root/reference/src/fastertransformer/models/deberta/Deberta.cc +

@@ -1,6 +1,6 @@
 """GPT-NeoX transformer, functional and scan-based.
 
-TPU-native re-design of the reference engine's compute graph:
+Functional re-design of the reference engine's compute graph:
   - prefill  ≙ GptNeoXContextDecoder
     (/root/reference/src/fastertransformer/models/gptneox/GptNeoXContextDecoder.cc:223-511)
   - decode   ≙ GptNeoXDecoder single-token step
@@ -48,12 +48,6 @@ def init_kv_cache(
     return kvc.init_cache(config, batch, max_seq_len, dtype)
 
 
-def _activation(config: GptNeoXConfig, x: jax.Array) -> jax.Array:
-    from ..ops.quant_matmul_w4 import apply_act
-
-    return apply_act(x, config.activation)
-
-
 def _norm(config: GptNeoXConfig, x: jax.Array, w: jax.Array, b) -> jax.Array:
     """Pre-norm dispatch: LayerNorm (GPT-NeoX/J) or RMSNorm (LLaMA family)."""
     if config.norm == "rmsnorm":
@@ -66,108 +60,14 @@ def _addb(x: jax.Array, b) -> jax.Array:
     return x if b is None else x + b.astype(x.dtype)
 
 
-def _layer_slice(layers: Dict[str, Any], l, extra=None) -> Dict[str, Any]:
+def _layer_slice(layers: Dict[str, Any], l) -> Dict[str, Any]:
     """Per-layer view: plain arrays are dynamically indexed (the slice fuses
-    into their consumers), QuantizedTensors stay STACKED — the Pallas kernels
-    index them internally via scalar prefetch, and slicing them here would
-    materialize a full weight copy per GEMM. ``extra`` entries (pre-shaped
-    stacked views for the fused decode kernels, which index the layer
-    in-kernel via scalar prefetch) pass through unsliced."""
-    lp = {
+    into their consumers); QuantizedTensors stay STACKED and ``linear``
+    indexes them by ``layer``."""
+    return {
         k: (v if isinstance(v, QuantizedTensor) else v[l])
         for k, v in layers.items()
     }
-    if extra:
-        lp.update(extra)
-    return lp
-
-
-# Engine-set (RuntimeConfig.fused_decode): allow the merged-kernel decode block.
-# FTCF_FUSED_DECODE=0 disables all merged kernels; FTCF_FUSED_UPD=0 disables
-# only the 3-phase up+proj+down mega-kernel (the proj+down pair stays fused).
-import os as _os
-
-# Env flags are KILL-SWITCHES: they always win over RuntimeConfig.fused_decode
-# (Engine.__init__ calls set_fused_decode on every construction, so a plain
-# global would be silently overwritten and FTCF_FUSED_DECODE=0 A/B runs would
-# compare the fused path against itself).
-_ENV_FUSED_DECODE = _os.environ.get("FTCF_FUSED_DECODE", "1") != "0"
-_FUSED_DECODE = _ENV_FUSED_DECODE
-_FUSED_UPD = _os.environ.get("FTCF_FUSED_UPD", "1") != "0"
-
-
-def set_fused_decode(flag: bool) -> None:
-    global _FUSED_DECODE
-    _FUSED_DECODE = bool(flag) and _ENV_FUSED_DECODE
-
-
-def _fused_pd_ok(config: GptNeoXConfig, lp: Dict[str, Any]) -> bool:
-    """True when the decode block's proj+down GEMMs (and the parallel
-    residual + bias) can merge into ONE Pallas kernel
-    (ops/quant_matmul_fused.fused_proj_down): parallel residual, both
-    weights stacked QuantizedTensors of one (bits, group) config, tileable
-    contraction. (Measured on v5e: the merged kernel matches the separate
-    pair's device time while deleting the residual-add and bias-slice ops;
-    the qkv+up N-merge measured SLOWER and stays unmerged.)"""
-    from ..ops import linear as lin
-
-    if not (_FUSED_DECODE and config.use_gptj_residual and lin._ON_TPU):
-        return False
-    ws = [lp.get(k) for k in ("proj_w", "down_w")]
-    if not all(isinstance(w, QuantizedTensor) and w.q.ndim == 3 for w in ws):
-        return False
-    if len({w.bits for w in ws}) != 1 or len({w.group_size for w in ws}) != 1:
-        return False
-    if ws[0].bits == 8 and not lin.use_pallas():
-        return False
-    if "down_b__3d" not in lp:
-        return False
-    import math
-
-    H = config.hidden_size
-    G = ws[0].group_size
-    if G:
-        # MEASURED gate (v5e, 13B g128 int4 + int8 KV, 1024in/512out, r3 A/B):
-        # group-wise scales lose in the merged kernels — the per-group K=G dot
-        # loop under-utilizes the MXU and the forced bk >= 8*G tile starves the
-        # DMA pipeline. tok/s: unfused 78.73 > proj+down pair 75.72 >
-        # up+proj+down mega-kernel 66.62. Per-channel (G=0) keeps the fused
-        # paths: mega 86.25 >= pair 86.06 >> unfused (round-1 path).
-        return False
-    bk_b = math.gcd(H, config.inter_size)
-    if H % 128 or bk_b % 256:
-        return False
-    return True
-
-
-def _fused_upd_ok(config: GptNeoXConfig, lp: Dict[str, Any]) -> bool:
-    """True when the WHOLE post-attention block (FFN up + act, attention proj,
-    FFN down, parallel residual, biases) can run as ONE Pallas kernel
-    (ops/quant_matmul_fused.fused_up_proj_down). Beyond _fused_pd_ok it needs
-    the up weight in the same stacked-quantized config, the stacked up-bias
-    view, and a Mosaic-fusable activation (exact-erf gelu cannot lower in a
-    kernel; those configs keep the split path)."""
-    from ..ops.quant_matmul_w4 import PALLAS_FUSABLE_ACTS
-
-    if not (_FUSED_UPD and _fused_pd_ok(config, lp)):
-        return False
-    if config.activation not in PALLAS_FUSABLE_ACTS:
-        return False
-    up = lp.get("up_w")
-    proj = lp["proj_w"]
-    if not (isinstance(up, QuantizedTensor) and up.q.ndim == 3):
-        return False
-    if up.bits != proj.bits or up.group_size != proj.group_size:
-        return False
-    if "up_b__3d" not in lp:
-        return False
-    F = config.inter_size
-    H = config.hidden_size
-    if F % 128 or H % 128:
-        return False
-    if up.group_size and (H % (8 * up.group_size) or F % (8 * up.group_size)):
-        return False
-    return True
 
 
 def _qkv(config: GptNeoXConfig, lp, x, cos, sin, layer=None):
@@ -176,14 +76,11 @@ def _qkv(config: GptNeoXConfig, lp, x, cos, sin, layer=None):
     "interleaved" layout (GPT-NeoX/J): qkv_w's flat output axis is ordered
     (head, qkv, dh) — HF's native layout — so the per-head q/k/v split is a
     reshape, never a transpose. "concat" layout ([q all | k all | v all]) is
-    the GQA form where q and kv head counts differ (LLaMA family). The decode
-    scan passes the STACKED [L, 1, N] bias view (``qkv_b__3d``) so the Pallas
-    kernel indexes it in-kernel instead of paying a per-layer slice op."""
+    the GQA form where q and kv head counts differ (LLaMA family)."""
     B, S, _ = x.shape
     nH, dh = config.head_num, config.size_per_head
-    qkv = linear(
-        x, lp["qkv_w"], lp.get("qkv_b__3d", lp.get("qkv_b")), layer=layer
-    )  # [B, S, (nH + 2*nKV) * dh]
+    qkv = linear(x, lp["qkv_w"], lp.get("qkv_b"), layer=layer)
+    # [B, S, (nH + 2*nKV) * dh]
     if config.qkv_layout == "concat":
         nKV = config.kv_heads
         q = qkv[..., : nH * dh].reshape(B, S, nH, dh)
@@ -214,9 +111,8 @@ def _ffn(config: GptNeoXConfig, lp, x, layer=None, token_valid=None):
             valid=None if token_valid is None else token_valid.reshape(-1),
         )
         return y.reshape(B, S, H)
-    # bias + activation fuse into the up-GEMM (Pallas epilogue on TPU, XLA
-    # fusion elsewhere) = the reference's invokeAddBiasGeluV2 epilogue;
-    # stacked [L, 1, N] bias view when the decode scan provides it
+    # bias + activation fuse into the up-GEMM's epilogue (XLA fusion) = the
+    # reference's invokeAddBiasGeluV2 epilogue
     if config.gated_ffn:
         # SwiGLU (LLaMA family): h = act(x @ gate) * (x @ up)
         g = linear(
@@ -224,10 +120,7 @@ def _ffn(config: GptNeoXConfig, lp, x, layer=None, token_valid=None):
         )
         h = g * linear(x, lp["up_w"], lp.get("up_b"), layer=layer)
     else:
-        h = linear(
-            x, lp["up_w"], lp.get("up_b__3d", lp.get("up_b")), layer=layer,
-            act=config.activation,
-        )
+        h = linear(x, lp["up_w"], lp.get("up_b"), layer=layer, act=config.activation)
     # down bias applied by caller (residual fusion)
     return linear(h, lp["down_w"], layer=layer)
 
@@ -302,41 +195,6 @@ def block_decode(
         cache, layer, q[:, 0], valid, sm_scale, positions, beam=beam
     )  # [B, nH, dh]
 
-    if _fused_upd_ok(config, lp):
-        # FFN up + activation + proj + down + parallel residual + biases as
-        # ONE Pallas kernel streaming all three weights through a single
-        # pipeline ramp; its output IS the layer output (quant_matmul_fused)
-        from ..ops.quant_matmul_fused import fused_up_proj_down
-
-        ln2 = _norm(config, x, lp["ln2_w"], lp.get("ln2_b"))
-        up_w, proj_w, down_w = lp["up_w"], lp["proj_w"], lp["down_w"]
-        out = fused_up_proj_down(
-            ln2[:, 0], attn.reshape(B, H), x[:, 0],
-            up_w.q, proj_w.q, down_w.q,
-            up_w.scale, proj_w.scale, down_w.scale,
-            lp["up_b__3d"], lp["down_b__3d"], layer,
-            bits=proj_w.bits, G=proj_w.group_size, act=config.activation,
-        )
-        return out[:, None, :], cache
-
-    if _fused_pd_ok(config, lp):
-        # proj + down + parallel residual + layer bias as ONE Pallas kernel:
-        # its output IS the layer output (ops/quant_matmul_fused)
-        from ..ops.quant_matmul_fused import fused_proj_down
-
-        ln2 = _norm(config, x, lp["ln2_w"], lp.get("ln2_b"))
-        h = linear(
-            ln2, lp["up_w"], lp.get("up_b__3d", lp["up_b"]), layer=layer,
-            act=config.activation,
-        )
-        proj_w, down_w = lp["proj_w"], lp["down_w"]
-        out = fused_proj_down(
-            attn.reshape(B, H), h[:, 0], proj_w.q, down_w.q,
-            proj_w.scale, down_w.scale, lp["down_b__3d"], x[:, 0], layer,
-            bits=proj_w.bits, G=proj_w.group_size,
-        )
-        return out[:, None, :], cache
-
     attn_out = linear(attn.reshape(B, 1, H), lp["proj_w"], layer=layer)
 
     tv = None
@@ -379,9 +237,7 @@ def block_prefill_chunk(
     q, k, v = _qkv(config, lp, ln1, cos, sin, layer)  # [B, C, nH, dh]
 
     cache = kvc.write_chunk(cache, layer, k, v, pos, active)
-    attn = kvc.attend_chunk(
-        cache, layer, q, valid, sm_scale, positions=pos
-    )  # [B, C, nH, dh]
+    attn = kvc.attend_chunk(cache, layer, q, valid, sm_scale)  # [B, C, nH, dh]
     attn_out = linear(attn.reshape(B, C, H), lp["proj_w"], layer=layer)
 
     tv = None
@@ -438,30 +294,14 @@ def prefill_chunk(
     return x, cache
 
 
-def _decode_bias_views(layers: Dict[str, Any]) -> Dict[str, Any]:
-    """Pre-shaped [L, 1, N] stacked-bias views for the fused decode kernels.
-    Must be built OUTSIDE the layer scan (once per step) — inside the body the
-    reshape lowers to a full bias-slab relayout copy per layer."""
-    out = {}
-    for k in ("qkv_b", "up_b", "down_b"):
-        v = layers.get(k)
-        if v is not None and not isinstance(v, QuantizedTensor) and v.ndim == 2:
-            out[k + "__3d"] = v.reshape(v.shape[0], 1, v.shape[1])
-    return out
-
-
-def _scan_layers(config, params, x, cache, per_layer_fn, unroll=False, extra=None):
+def _scan_layers(config, params, x, cache, per_layer_fn, unroll=False):
     """Run the layer stack via lax.scan over the layer index.
 
     Both the cache and the weights stay OUT of scan xs/ys: the cache rides the
     carry (in-place updates at the layer index), plain per-layer tensors are
     dynamically indexed in the body (the slice fuses into consumers), and
-    quantized kernels stay stacked for the scalar-prefetch Pallas kernels.
+    quantized weights stay stacked (``linear`` indexes them by layer).
     The xs/ys form re-assembles stacked slabs with a full copy every call.
-
-    ``extra`` (e.g. the decode path's pre-shaped [L, 1, N] bias views) passes
-    through to every lp unsliced — computed ONCE per step, outside the scan,
-    because a reshape inside the body lowers to a per-layer relayout copy.
 
     ``unroll=True`` runs a plain Python loop instead — only for offline tools
     that need concrete per-layer values outside jit (ckpt.calibrate's
@@ -471,7 +311,7 @@ def _scan_layers(config, params, x, cache, per_layer_fn, unroll=False, extra=Non
 
     def body(carry, l):
         x, cache = carry
-        lp = _layer_slice(layers, l, extra)
+        lp = _layer_slice(layers, l)
         y, cache = per_layer_fn(lp, x, cache, l)
         return (y, cache), None
 
@@ -574,9 +414,7 @@ def decode_step(
         config, lp, x, c, l, cos, sin, positions, valid, beam=beam,
         kv_skip=kv_skip, kv_skip_mode=kv_skip_mode,
     )
-    x, cache = _scan_layers(
-        config, params, x, cache, fn, extra=_decode_bias_views(params["layers"])
-    )
+    x, cache = _scan_layers(config, params, x, cache, fn)
     return x[:, 0], cache
 
 

@@ -1,4 +1,4 @@
-"""Longformer encoder family — sliding-window + global attention, TPU-native.
+"""Longformer encoder family — sliding-window + global attention.
 
 The reference ships Longformer as its own C++ engine with dedicated
 sliding-chunk kernels (/root/reference/src/fastertransformer/models/
@@ -14,13 +14,11 @@ LongformerModel exactly):
     query_global/key_global/value_global projections over the full sequence;
   - RoBERTa-style position ids (pad-offset cumsum), post-LN blocks, pooler.
 
-Kernel path: HF's chunked banded matmuls exist to avoid materializing the
-[S, S] score matrix on GPUs; XLA fuses the dense-masked formulation into the
-same effective compute on CPU for parity, while the TPU hot path rides
-ops/sliding_window.sliding_window_attention — a banded Pallas kernel that
-only visits KV chunks within the window (work ∝ S*w, not S², the
-longformer_kernels.cu analog), used for the no-global-token case; rows with
-global tokens take the dense-masked path (rare columns break the band).
+Attention path: HF's chunked banded matmuls exist to avoid materializing the
+[S, S] score matrix; here the band (plus global columns) is a dense mask over
+one einsum, which XLA fuses. A banded kernel that visits only KV chunks
+within the window (work ∝ S*w, not S², the longformer_kernels.cu analog) is
+not written for the GPU yet.
 """
 from __future__ import annotations
 
@@ -138,7 +136,30 @@ def _heads(x, nH, dh):
     return x.reshape(B, S, nH, dh)
 
 
-def _attention(config, lp, x, w_half, is_masked, is_global, use_kernel=False):
+def _local_attention(q, k, v, w_half, is_masked, is_global):
+    """Banded local attention plus global columns, as one dense mask.
+    q (pre-scaled), k, v: [B, S, nH, dh]. Padded query rows come out zero."""
+    S = q.shape[1]
+    i = jnp.arange(S)
+    in_band = jnp.abs(i[:, None] - i[None, :]) <= w_half  # [S, S]
+    # allowed = global keys (everyone attends them, standard k/v) OR
+    # in-band local non-global non-padding keys — the dense-mask form of
+    # HF's [global cols | band] concat (it sums to the same softmax)
+    allowed = (
+        is_global[:, None, :]
+        | (in_band[None] & ~is_masked[:, None, :] & ~is_global[:, None, :])
+    )  # [B, S(q), S(k)]
+    scores = jnp.einsum("bqhd,bkhd->bhqk", q, k,
+                        preferred_element_type=jnp.float32)
+    scores = jnp.where(allowed[:, None], scores, MASK_VALUE)
+    probs = jax.nn.softmax(scores, axis=-1)
+    # padded query rows: zero every prob (HF masked_fill on is_index_masked)
+    probs = jnp.where(is_masked[:, None, :, None], 0.0, probs)
+    return jnp.einsum("bhqk,bkhd->bqhd", probs.astype(v.dtype), v,
+                      preferred_element_type=jnp.float32).astype(v.dtype)
+
+
+def _attention(config, lp, x, w_half, is_masked, is_global):
     """One Longformer attention: banded local + global columns, then global
     rows recomputed with the *_global projections (LongformerSelfAttention
     semantics, modeling_longformer.py:485-620)."""
@@ -148,34 +169,7 @@ def _attention(config, lp, x, w_half, is_masked, is_global, use_kernel=False):
     q = _heads(linear(x, lp["q_w"], lp["q_b"]), nH, dh) * scale
     k = _heads(linear(x, lp["k_w"], lp["k_b"]), nH, dh)
     v = _heads(linear(x, lp["v_w"], lp["v_b"]), nH, dh)
-
-    i = jnp.arange(S)
-    in_band = jnp.abs(i[:, None] - i[None, :]) <= w_half  # [S, S]
-    if use_kernel:
-        # no-global fast path: the banded Pallas kernel visits only KV
-        # chunks inside the window (ops/sliding_window.py). The routing
-        # decision is STRUCTURAL (global_mask arg absent), never a traced
-        # value — encode() only sets use_kernel when no mask was passed, so
-        # this stays jit-safe.
-        from ..ops.sliding_window import sliding_window_attention
-
-        ctx = sliding_window_attention(q, k, v, w_half, is_masked)
-    else:
-        # allowed = global keys (everyone attends them, standard k/v) OR
-        # in-band local non-global non-padding keys — the dense-mask form of
-        # HF's [global cols | band] concat (it sums to the same softmax)
-        allowed = (
-            is_global[:, None, :]
-            | (in_band[None] & ~is_masked[:, None, :] & ~is_global[:, None, :])
-        )  # [B, S(q), S(k)]
-        scores = jnp.einsum("bqhd,bkhd->bhqk", q, k,
-                            preferred_element_type=jnp.float32)
-        scores = jnp.where(allowed[:, None], scores, MASK_VALUE)
-        probs = jax.nn.softmax(scores, axis=-1)
-        # padded query rows: zero every prob (HF masked_fill on is_index_masked)
-        probs = jnp.where(is_masked[:, None, :, None], 0.0, probs)
-        ctx = jnp.einsum("bhqk,bkhd->bqhd", probs.astype(x.dtype), v,
-                         preferred_element_type=jnp.float32).astype(x.dtype)
+    ctx = _local_attention(q, k, v, w_half, is_masked, is_global)
 
     # global rows: full attention with the dedicated global projections
     qg = _heads(linear(x, lp["qg_w"], lp["qg_b"]), nH, dh) * scale
@@ -197,7 +191,6 @@ def encode(
     input_ids: jax.Array,  # [B, S] int32
     lengths: jax.Array,  # [B]
     global_mask: Optional[jax.Array] = None,  # [B, S] bool — global tokens
-    use_kernel: bool = False,
 ):
     """Full encoder pass -> (last_hidden [B, S, H], pooled or None)."""
     B, S = input_ids.shape
@@ -207,9 +200,6 @@ def encode(
         is_global = jnp.zeros((B, S), bool)
     else:
         is_global = jnp.asarray(global_mask, bool) & real
-        # the banded kernel cannot serve global columns; route structurally
-        # (by mask-arg presence, never by traced values — jit-safe)
-        use_kernel = False
 
     # RoBERTa-style positions: pad-offset cumsum over real tokens
     pos = jnp.cumsum(real.astype(jnp.int32), axis=1) * real + config.pad_token_id
@@ -228,10 +218,7 @@ def encode(
 
     def body(carry, l):
         lp = {k: v[l] for k, v in layers.items()}
-        a = _attention(
-            config, lp, carry, windows[l], is_masked, is_global,
-            use_kernel=use_kernel,
-        )
+        a = _attention(config, lp, carry, windows[l], is_masked, is_global)
         a = linear(a, lp["proj_w"], lp["proj_b"])
         h = layernorm(carry + a, lp["attn_ln_w"], lp["attn_ln_b"],
                       config.layernorm_eps)
@@ -241,24 +228,7 @@ def encode(
                         config.layernorm_eps)
         return out, None
 
-    if use_kernel:
-        # kernel mode needs a concrete per-layer window (the band grid is
-        # static); unroll the layer loop in Python
-        for l in range(config.layer_num):
-            lp = {k: v[l] for k, v in layers.items()}
-            a = _attention(
-                config, lp, x, config.attention_window[l] // 2, is_masked,
-                is_global, use_kernel=True,
-            )
-            a = linear(a, lp["proj_w"], lp["proj_b"])
-            h = layernorm(x + a, lp["attn_ln_w"], lp["attn_ln_b"],
-                          config.layernorm_eps)
-            f = linear(h, lp["up_w"], lp["up_b"], act=config.activation)
-            f = linear(f, lp["down_w"], lp["down_b"])
-            x = layernorm(h + f, lp["out_ln_w"], lp["out_ln_b"],
-                          config.layernorm_eps)
-    else:
-        x, _ = jax.lax.scan(body, x, jnp.arange(config.layer_num))
+    x, _ = jax.lax.scan(body, x, jnp.arange(config.layer_num))
 
     pooled = None
     if "pooler_w" in params:

@@ -1,6 +1,6 @@
 """Parameter pytrees for GPT-NeoX models.
 
-TPU-native replacement for the reference's host-side weight container
+Replacement for the reference's host-side weight container
 (/root/reference/examples/pytorch/codefuse/codefuse_example.py:182-292, a flat
 list with a fixed index layout) and the device-side weight structs
 (/root/reference/src/fastertransformer/models/gptneox/GptNeoXWeight.{h,cc}).
@@ -60,7 +60,7 @@ class QuantizedTensor:
     the same math as the reference's
     ``symmetric_quantize_last_axis_of_batched_matrix``
     (/root/reference/src/fastertransformer/th_op/common/WeightOnlyQuantOps.cc:140-233)
-    minus the CUTLASS layout interleaving, which has no TPU analog.
+    minus the CUTLASS layout interleaving, which the XLA GEMMs do not need.
     """
 
     q: jax.Array  # int8 container; for bits=4 the K axis is nibble-packed (K/2)
@@ -70,10 +70,8 @@ class QuantizedTensor:
     group_size: int = 0  # 0 = per-output-channel; G>0 = per-(K-group, channel)
     bits: int = 8  # 8 = one int8/elem; 4 = two int4 nibbles per int8 along K,
     # INTERLEAVED: logical row 2i sits in byte-row i's LOW nibble and row 2i+1
-    # in its HIGH nibble — exactly the order Mosaic's int8->int4 bitcast
-    # produces on TPU, so the Pallas W4 kernel unpacks for free. jnp.int4
-    # arrays exist but cannot cross jit boundaries on this backend, hence the
-    # int8 container. The reference's CUTLASS fpA-intB path has the same two
+    # in its HIGH nibble; the unpack is two int8 shifts. The payload stays in
+    # an int8 container. The reference's CUTLASS fpA-intB path has the same two
     # widths (WeightOnlyQuantOps.cc int4 pack/unpack helpers).
 
     def tree_flatten(self):

@@ -1,4 +1,4 @@
-"""Swin encoder family — shifted-window 2D attention, TPU-native.
+"""Swin encoder family — shifted-window 2D attention.
 
 The reference ships Swin as its own C++ engine with an int8 variant and a
 TensorRT plugin (/root/reference/src/fastertransformer/models/swin/

@@ -1,4 +1,4 @@
-"""T5 encoder-decoder family — the reference's `t5` model class, TPU-native.
+"""T5 encoder-decoder family — the reference's `t5` model class.
 
 The reference serves T5 through its own C++ engine
 (/root/reference/src/fastertransformer/models/t5/T5Encoder.cc + T5Decoding.cc
@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops.layernorm import rmsnorm
-from ..ops.quant_matmul_w4 import apply_act
+from ..ops.linear import apply_act
 
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 

@@ -1,12 +1,12 @@
-"""ViT encoder family — patch-embedding vision transformer, TPU-native.
+"""ViT encoder family — patch-embedding vision transformer.
 
 The reference ships ViT as its own C++ engine with an int8 variant and a
 TensorRT plugin (/root/reference/src/fastertransformer/models/vit/
 ViTTransformer.cc, models/vit_int8/, tensorrt_plugin/vit/); it is the first
 NON-TEXT family here — the input is pixels, the "tokens" are image patches:
 
-  - patch embedding: a stride-P PxP conv == one reshape + GEMM on TPU (the
-    MXU-friendly formulation; XLA lowers a stride-P conv the same way, but
+  - patch embedding: a stride-P PxP conv == one reshape + GEMM (the
+    tensor-core-friendly formulation; XLA lowers a stride-P conv the same way, but
     the reshape form keeps the weight a plain [P*P*C, H] matrix that rides
     ops/linear like every other projection, int8-ready);
   - learned [CLS] token prepended + learned absolute position embeddings;

@@ -1,4 +1,4 @@
-"""XLNet encoder family — Transformer-XL relative attention, TPU-native.
+"""XLNet encoder family — Transformer-XL relative attention.
 
 The reference ships XLNet as its own C++ engine
 (/root/reference/src/fastertransformer/models/xlnet/Xlnet.cc +
@@ -26,7 +26,7 @@ import numpy as np
 
 from ..ops.layernorm import layernorm
 from ..ops.linear import linear
-from ..ops.quant_matmul_w4 import apply_act
+from ..ops.linear import apply_act
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""Reference (pure-XLA) attention paths: prefill and single-token decode.
+"""Attention paths: prefill and single-token decode.
 
 These replace, respectively:
   - the reference's TRT fused flash MHA / unfused bmm+softmax prefill path
@@ -8,65 +8,49 @@ These replace, respectively:
     (/root/reference/src/fastertransformer/kernels/
      decoder_masked_multihead_attention.cu).
 
-They are the numerically-canonical implementations; the Pallas flash kernels in
-``flash_prefill.py`` / ``flash_decode.py`` must match them. Softmax statistics
-in fp32, scores masked with a large negative value (not -inf, to avoid NaN on
-fully-masked rows).
+The einsum forms here are the numerically-canonical implementations; the
+library route for prefill (cuDNN's fused attention through
+``jax.nn.dot_product_attention``) and the decode kernel in ``flash_decode.py``
+must match them. Softmax statistics in fp32, scores masked with a large
+negative value (not -inf, to avoid NaN on fully-masked rows).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
+from . import routes
+
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 
-# set by the engine: use the Pallas flash kernel for prefill when shapes allow
-_FLASH_PREFILL = False
+def fused_prefill_ok(q: jax.Array) -> bool:
+    """Shapes and dtypes cuDNN's fused attention takes: 16-bit operands and
+    a head dim that is a multiple of 8, at most 128."""
+    dh = q.shape[-1]
+    return q.dtype in (jnp.bfloat16, jnp.float16) and dh % 8 == 0 and dh <= 128
 
 
-def set_flash_prefill(flag: bool) -> None:
-    global _FLASH_PREFILL
-    _FLASH_PREFILL = bool(flag)
-
-
-def _flash_ok(S: int, dh: int) -> bool:
-    # below ~2k the fused jnp path measures slightly faster on v5e (246 vs
-    # 269ms at S=1024 on 13B) and the S^2 scores tile still fits; flash wins
-    # on memory and bandwidth as S grows
-    return S >= 2048 and S % 128 == 0 and dh in (64, 128, 256)
-
-
-def prefill_attention_flash(
+def prefill_attention_fused(
     q: jax.Array,  # [B, S, nH, dh]
-    k: jax.Array,
+    k: jax.Array,  # [B, S, nKV, dh]
     v: jax.Array,
     input_lengths: jax.Array,  # [B]
     sm_scale: float,
+    implementation: str = "cudnn",
 ) -> jax.Array:
-    """Pallas flash-attention prefill (jax.experimental.pallas.ops.tpu).
-
-    The TPU replacement for the reference's TRT fused flash MHA cubins
-    (3rdparty/trt_fused_multihead_attention/): causal + right-padding
-    expressed as segment ids (pads get segment 2 and only attend each other —
-    their outputs are never read)."""
-    from jax.experimental.pallas.ops.tpu.flash_attention import (
-        SegmentIds,
-        flash_attention,
+    """Causal, right-padded prefill through ``jax.nn.dot_product_attention``
+    (cuDNN's fused flash attention on the GPU — the library analog of the
+    reference's TRT fused MHA cubins, 3rdparty/trt_fused_multihead_attention/).
+    Padding is given as per-row lengths; rows past a row's length are zeroed,
+    so their (never read) outputs stay finite for the layers above."""
+    S = q.shape[1]
+    out = jax.nn.dot_product_attention(
+        q, k, v, scale=sm_scale, is_causal=True,
+        query_seq_lengths=input_lengths, key_value_seq_lengths=input_lengths,
+        implementation=implementation,
     )
-
-    B, S, nH, dh = q.shape
-    seg = jnp.where(
-        jnp.arange(S)[None, :] < input_lengths[:, None], 1, 2
-    ).astype(jnp.int32)
-    out = flash_attention(
-        q.transpose(0, 2, 1, 3),
-        k.transpose(0, 2, 1, 3),
-        v.transpose(0, 2, 1, 3),
-        causal=True,
-        sm_scale=sm_scale,
-        segment_ids=SegmentIds(seg, seg),
-    )
-    return out.transpose(0, 2, 1, 3)
+    live = jnp.arange(S)[None, :, None, None] < input_lengths[:, None, None, None]
+    return jnp.where(live, out, 0).astype(q.dtype)
 
 
 def prefill_attention(
@@ -75,17 +59,16 @@ def prefill_attention(
     v: jax.Array,  # [B, S, nKV, dh]
     mask: jax.Array,  # [B, S, S] bool, True = may attend (causal & padding)
     sm_scale: float,
-    input_lengths=None,  # enables the flash path when set and shapes allow
+    input_lengths=None,  # enables the fused path when set and shapes allow
 ) -> jax.Array:
     B, S, nH, dh = q.shape
     nKV = k.shape[2]
     if (
-        _FLASH_PREFILL
+        routes.current().flash_prefill
         and input_lengths is not None
-        and nKV == nH
-        and _flash_ok(S, dh)
+        and fused_prefill_ok(q)
     ):
-        return prefill_attention_flash(q, k, v, input_lengths, sm_scale)
+        return prefill_attention_fused(q, k, v, input_lengths, sm_scale)
     if nKV != nH:
         # GQA: group the g query heads sharing each KV head — the KV tensors
         # are contracted per group WITHOUT materializing a repeated copy

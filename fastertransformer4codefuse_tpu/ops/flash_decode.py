@@ -1,30 +1,33 @@
-"""Pallas decode attention over the (optionally int8) KV cache.
+"""Decode attention over the KV cache as a Pallas kernel for the GPU (Triton).
 
-The TPU replacement for the reference's fused masked multi-head attention
-decode kernel (/root/reference/src/fastertransformer/kernels/
-decoder_masked_multihead_attention.cu: one CTA per (batch, head) streaming the
-cached keys with online softmax). Design notes for the TPU version:
+The analog of the reference's fused masked multi-head attention decode kernel
+(/root/reference/src/fastertransformer/kernels/decoder_masked_multihead_attention.cu:
+one block per (batch, head) walking the cached keys up to the current length).
 
-- The sequence axis is CHUNKED through the innermost grid dim (online softmax
-  over running (m, l, acc) scratch), so arbitrarily long caches stream
-  through a double-buffered pipeline instead of demanding one whole-[S] VMEM
-  block (the round-1 kernel's S<=4096 gate came from exactly that).
-- A block covers ``hb`` heads (amortizing per-grid-step overhead — a
-  head-per-cell grid measured 2x slower on small blocks); the math runs
-  BATCHED over all hb heads: one batched M=1 MXU dot for scores
-  (``[hb, 1, bs] = q[hb, 1, dh] @ k[hb, bs, dh]^T``), one ``exp`` over the
-  whole ``[hb, bs]`` score tile, one batched dot for pv
-  (``[hb, 1, dh] = p[hb, 1, bs] @ v[hb, bs, dh]``), scores LANE-major so the
-  per-vector cache scales ([hb, bs] slabs) and the mask iota land with ZERO
-  relayouts. An unrolled per-head loop of the same dots measured 38us/layer
-  vs 23us batched at S=1088 (DMA floor 17us): per-head [1, bs] ops waste
-  7/8 sublanes of every VPU op, the batched form fills them.
-  All converts feed the MXU as bf16: int8 -> bf16 is EXACT (|x| <= 127 fits
-  bf16's 8-bit mantissa) and halves the relayout + feed width vs f32; only
-  scores/p/acc stay f32.
-- The layer is scalar-prefetched from the stacked [L, ...] cache slabs (same
-  trick as the stacked weight kernels), so the kernel reads straight out of
-  the scan-carried cache with no per-layer slice copy.
+- One program per (row, KV head, sequence split). It loads its row's newest
+  position (and, for a paged pool, its block-table entries) itself and loops
+  over the cache in chunks of ``bk`` positions up to that position, so only
+  live cache bytes are read. The XLA path reads the whole allocated slab
+  (engine/kv_cache.attend_decode) or first gathers every page into a dense
+  copy (engine/paged_kv.gather_layer_dense).
+- Splits along the sequence keep the card busy at batch 1: each split keeps
+  its own online softmax in float32 registers and writes a partial
+  (numerator, max, denominator); the wrapper combines the splits
+  (flash-decoding). A split that lies wholly past the row's position does no
+  work.
+- Int8 caches are dequantised in registers with their per-vector scales;
+  they are read as int16 words (two head-dim lanes each, see ``_words``).
+  Nibble-packed int4 slabs (two sequence positions per byte) are read once
+  and split into their even and odd positions.
+- The layer index is a kernel operand, so the kernel reads straight out of
+  the stacked ``[L, ...]`` cache that the layer scan carries, with no
+  per-layer slice copy.
+- The products are plain broadcast-multiply-reduce over ``dh``: decode
+  attention is bound by cache bytes, and each query row (one per query head
+  of the KV head's group) is its own dot product.
+
+The XLA paths in engine/kv_cache.py are the reference the kernel is tested
+against (``interpret=True`` on the CPU).
 """
 from __future__ import annotations
 
@@ -32,662 +35,265 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 
+# Programs to aim for: two per SM of an H100 (132 SMs), so that a decode step
+# at batch 1 still spreads its cache reads over the whole card.
+_TARGET_PROGRAMS = 264
+_MIN_CHUNK = 16
+
+
+def _pow2_divisor(n: int, cap: int) -> int:
+    """Largest power of two that divides ``n`` and is at most ``cap``."""
+    d = 1
+    while d * 2 <= cap and n % (d * 2) == 0:
+        d *= 2
+    return d
+
+
+def supported(seq_len: int, head_dim: int, page_size: int = 0) -> bool:
+    """Shapes the kernel takes: a power-of-two head dim, and chunks of at
+    least ``_MIN_CHUNK`` positions that tile the slab (or the page)."""
+    if head_dim & (head_dim - 1):
+        return False
+    n = page_size or seq_len
+    return _pow2_divisor(n, _MIN_CHUNK) == _MIN_CHUNK
+
+
+def _bits(w, lo: int, width: int):
+    """Sign-extended ``width``-bit field at bit ``lo`` of int16 words, as
+    float32."""
+    w = w.astype(jnp.int32)
+    return ((w << (32 - lo - width)) >> (32 - width)).astype(jnp.float32)
+
 
 def _kernel(
-    scalars_ref, q_ref, k_ref, *rest, sm_scale, bs, n_s, hb, g, has_scale,
-    k_packed=False, v_packed=False, compute_dtype=jnp.bfloat16, gq=None,
+    layer_ref, pos_ref, pt_ref, q_ref, k_ref, ks_ref, v_ref, vs_ref,
+    o_ref, m_ref, l_ref, *, g, sm_scale, bk, ps, chunks_per_split,
+    k_packed, v_packed, lanes,
 ):
-    """``g`` = query rows per KV head (1 = plain MHA; >1 = GQA, the LLaMA
-    family): the per-KV-head query dot simply widens from M=1 to M=g — the
-    KV bytes are still read once per KV head, matching the reference decode
-    kernel's head_num/kv_head_num grouping
-    (decoder_masked_multihead_attention_template.hpp).
-
-    ``gq`` (chunk mode, flash_chunk_paged): g = C * gq packs C CONSECUTIVE
-    query positions per GQA group of gq heads; row r's causal bound is then
-    pos + (r % g) // gq, where ``pos`` is the chunk's START position — the
-    multi-query generalization needs no per-query scalars because chunk
-    positions are consecutive."""
-    if has_scale:
-        ks_ref, v_ref, vs_ref, o_ref, m_ref, l_ref, acc_ref = rest
-    else:
-        v_ref, o_ref, m_ref, l_ref, acc_ref = rest
-    R = hb * g  # flattened (kv_head, group) score rows
-    cq = 1 if gq is None else g // gq  # consecutive query positions
-
-    def load_kv(ref, packed):
-        # packed int4 slabs: bitcast doubles the sublane (sequence) axis with
-        # rows (2i, 2i+1) = positions in order; int4 -> bf16 is exact
-        raw = ref[0, 0]  # [hb, bs(/2), dh]
-        if packed:
-            return pltpu.bitcast(raw, jnp.int4).astype(compute_dtype)
-        return raw.astype(compute_dtype)
     b = pl.program_id(0)
-    s_idx = pl.program_id(2)
-    pos = scalars_ref[1 + b]  # newest-token slot (inclusive mask bound)
-
-    @pl.when(s_idx == 0)
-    def _init():
-        m_ref[...] = jnp.full_like(m_ref, MASK_VALUE)  # running max (col 0)
-        l_ref[...] = jnp.zeros_like(l_ref)  # running denom (col 0)
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    # chunks fully past the valid prefix contribute nothing; skip their math
-    # (their DMA is already in flight — the win is VPU time, not bytes)
-    @pl.when(s_idx * bs <= pos + cq - 1)
-    def _compute():
-        col = jax.lax.broadcasted_iota(jnp.int32, (R, bs), 1) + s_idx * bs
-        if cq == 1:
-            bound = pos
-        else:  # per-row query offset within the consecutive chunk
-            r_iota = jax.lax.broadcasted_iota(jnp.int32, (R, bs), 0)
-            bound = pos + (r_iota % g) // (g // cq)
-        valid = col <= bound
-        qb = q_ref[0].astype(compute_dtype)  # [hb, g, dh]
-        kf = load_kv(k_ref, k_packed)  # [hb, bs, dh]
-        # scores = q @ k^T: hb-batched M=g MXU dot, LANE-major [hb, g, bs]
-        scores = jax.lax.dot_general(
-            qb, kf, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        ).reshape(R, bs)
-        if has_scale:
-            ks = ks_ref[0, 0].astype(jnp.float32)  # [hb, bs]
-            scores = scores * jnp.repeat(ks, g, axis=0) if g > 1 else scores * ks
-        scores = jnp.where(valid, scores * sm_scale, MASK_VALUE)
-
-        m_prev = m_ref[:, :1]  # [R, 1]
-        m_new = jnp.maximum(m_prev, jnp.max(scores, axis=1, keepdims=True))
-        alpha = jnp.exp(m_prev - m_new)
-        p = jnp.exp(scores - m_new)  # [R, bs]; masked cols -> 0
-        if cq > 1:
-            # per-row bounds: a row whose bound lies wholly before this chunk
-            # has ALL scores at MASK_VALUE, making p = exp(0) = 1 — re-mask
-            # so such rows contribute nothing (same hazard as _beam_kernel)
-            p = jnp.where(valid, p, 0.0)
-
-        if has_scale:
-            # OOB tail loads can hold NaN bit patterns in the scale slab
-            # and 0 * NaN = NaN — re-mask after the multiply
-            vs = vs_ref[0, 0].astype(jnp.float32)
-            vsr = jnp.repeat(vs, g, axis=0) if g > 1 else vs
-            pv_w = jnp.where(valid, p * vsr, 0.0)
-        else:
-            pv_w = p
-        vf = load_kv(v_ref, v_packed)  # [hb, bs, dh]
-        if not has_scale:
-            # float caches: tail garbage could be NaN while p is 0 (chunk
-            # mode: valid data extends through the chunk's own last write)
-            row = jax.lax.broadcasted_iota(jnp.int32, (hb, bs, 1), 1) + s_idx * bs
-            vf = jnp.where(row <= pos + cq - 1, vf, 0.0)
-        # pv = p @ v: hb-batched M=g MXU dot, K=bs on v's sublanes
-        pv = jax.lax.dot_general(
-            pv_w.astype(compute_dtype).reshape(hb, g, bs), vf,
-            (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        ).reshape(R, -1)  # [R, dh]
-        acc_ref[...] = alpha * acc_ref[...] + pv
-        m_ref[:, :1] = m_new
-        l_ref[:, :1] = alpha * l_ref[:, :1] + jnp.sum(p, axis=1, keepdims=True)
-
-    @pl.when(s_idx == n_s - 1)
-    def _done():
-        denom = jnp.maximum(l_ref[:, :1], 1e-20)
-        o_ref[0] = (
-            (acc_ref[...] / denom).reshape(hb, g, -1).astype(o_ref.dtype)
-        )
-
-
-def _beam_kernel(
-    scalars_ref, q_ref, ind_ref, k_ref, *rest,
-    sm_scale, bs, n_s, hb, bw, has_scale,
-):
-    """Grouped beam decode chunk: loads ALL bw physical rows' K/V tiles for
-    one beam group and resolves the cache indirection in-register — each
-    cache byte is read ONCE per group (like attend_decode_beam's all-pairs
-    formulation, but fused with the online softmax and streaming
-    length-proportional chunks like the plain decode kernel)."""
-    if has_scale:
-        ks_ref, v_ref, vs_ref, o_ref, m_ref, l_ref, acc_ref = rest
-    else:
-        v_ref, o_ref, m_ref, l_ref, acc_ref = rest
-
-    g = pl.program_id(0)
-    s_idx = pl.program_id(2)
-    # per-row newest-token slots for this group: scalars[1 + g*bw + j]
-    R = bw * hb  # flattened (j, h) rows
-
-    @pl.when(s_idx == 0)
-    def _init():
-        m_ref[...] = jnp.full_like(m_ref, MASK_VALUE)
-        l_ref[...] = jnp.zeros_like(l_ref)
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    group_max = scalars_ref[1 + g * bw]
-    for j in range(1, bw):
-        group_max = jnp.maximum(group_max, scalars_ref[1 + g * bw + j])
-
-    @pl.when(s_idx * bs <= group_max)
-    def _compute():
-        qb = q_ref[0].astype(jnp.bfloat16)  # [bw, hb, dh]
-        qh = qb.transpose(1, 0, 2)  # [hb, bw, dh]
-        ind = ind_ref[0]  # [bw, bs] int32 physical row per (beam, position)
-        col = jax.lax.broadcasted_iota(jnp.int32, (bw, bs), 1) + s_idx * bs
-
-        # selected scores [hb, bw, bs]: unrolled over the bw physical rows,
-        # one-hot indirection select per (beam, position) in-register
-        sel_scores = jnp.zeros((hb, bw, bs), jnp.float32)
-        for c in range(bw):
-            kc = k_ref[0, 0, c].astype(jnp.bfloat16)  # [hb, bs, dh]
-            sc = jax.lax.dot_general(
-                qh, kc, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # [hb, bw, bs]
-            if has_scale:
-                sc = sc * ks_ref[0, 0, c].astype(jnp.float32)[:, None, :]
-            sel_scores = sel_scores + jnp.where(
-                (ind == c)[None, :, :], sc, 0.0
-            )
-
-        # per-beam causal bound: valid[j, s] = s <= positions[group*bw + j]
-        rowj = jax.lax.broadcasted_iota(jnp.int32, (bw, bs), 0)
-        bound = jnp.zeros((bw, bs), jnp.int32)
-        for j in range(bw):
-            bound = jnp.where(rowj == j, scalars_ref[1 + g * bw + j], bound)
-        valid = col <= bound
-        scores = jnp.where(
-            valid[None, :, :], sel_scores * sm_scale, MASK_VALUE
-        ).reshape(R, bs)  # rows = (h, j)
-
-        m_prev = m_ref[:, :1]
-        m_new = jnp.maximum(m_prev, jnp.max(scores, axis=1, keepdims=True))
-        alpha = jnp.exp(m_prev - m_new)
-        p = jnp.exp(scores - m_new)  # [R, bs]
-        # a row whose chunk lies wholly past ITS OWN position (the group
-        # bound admits the chunk when ANY row still has data) has every score
-        # at MASK_VALUE, making p = exp(0) = 1 — re-mask so such rows
-        # contribute nothing to l/acc (and 0*NaN scale tails stay out)
-        p = jnp.where(
-            jnp.broadcast_to(valid[None, :, :], (hb, bw, bs)).reshape(R, bs),
-            p, 0.0,
-        )
-
-        ph = p.reshape(hb, bw, bs)
-        pv = jnp.zeros((hb, bw, acc_ref.shape[-1]), jnp.float32)
-        for c in range(bw):
-            sel = (ind == c)[None, :, :] & valid[None, :, :]
-            if has_scale:
-                # mask AFTER the scale multiply: OOB scale tails can be NaN
-                pc = jnp.where(
-                    sel, ph * vs_ref[0, 0, c].astype(jnp.float32)[:, None, :],
-                    0.0,
-                )
-            else:
-                pc = jnp.where(sel, ph, 0.0)
-            vc = v_ref[0, 0, c].astype(jnp.bfloat16)  # [hb, bs, dh]
-            if not has_scale:
-                # float caches: the region past EVERY row's extent can hold
-                # garbage and 0 * NaN = NaN inside the dot — zero it. Between
-                # a shorter row's own extent and group_max the bytes are
-                # unwritten too, but engine caches are zero-init (finite) and
-                # the indirection contract only selects rows whose extent
-                # covers the position (matching the XLA fallback, which reads
-                # vg unmasked — see kv_cache.attend_decode_beam)
-                tail = jax.lax.broadcasted_iota(jnp.int32, (1, bs, 1), 1)
-                vc = jnp.where(tail + s_idx * bs <= group_max, vc, 0.0)
-            pv = pv + jax.lax.dot_general(
-                pc.astype(jnp.bfloat16), vc, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )  # [hb, bw, dh]
-
-        acc_ref[...] = alpha * acc_ref[...] + pv.reshape(R, -1)
-        m_ref[:, :1] = m_new
-        l_ref[:, :1] = alpha * l_ref[:, :1] + jnp.sum(p, axis=1, keepdims=True)
-
-    @pl.when(s_idx == n_s - 1)
-    def _done():
-        denom = jnp.maximum(l_ref[:, :1], 1e-20)
-        out = (acc_ref[...] / denom).reshape(hb, bw, -1).transpose(1, 0, 2)
-        o_ref[0] = out.astype(o_ref.dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("bw", "sm_scale", "hb", "bs", "interpret")
-)
-def flash_decode_beam_stacked(
-    q: jax.Array,  # [BB, nH, dh] bf16 (BB = B * bw, beam-minor rows)
-    k_all: jax.Array,  # [L, BB, nH, S, dh] int8 or float
-    ks_all,  # [L, BB, nH, S] scales or None
-    v_all: jax.Array,
-    vs_all,
-    layer: jax.Array,
-    positions: jax.Array,  # [BB] newest-token slot per row
-    indir: jax.Array,  # [BB, S] int32 in [0, bw) — cache indirection
-    bw: int,
-    sm_scale: float,
-    hb: int = 40,
-    bs: int = 256,
-    interpret: bool = False,
-) -> jax.Array:
-    """Beam decode attention with IN-KERNEL cache indirection — the analog of
-    the reference decode kernel's cache_indir parameter
-    (decoder_masked_multihead_attention.h): each beam group's bw physical
-    rows stream through VMEM once per chunk; per-position one-hot selects
-    resolve which row belongs to each target beam. Streams only
-    ceil(max_group_pos/bs) chunks (length-proportional reads) vs the XLA
-    all-pairs path's full-allocation reads."""
-    BB, nH, dh = q.shape
-    B = BB // bw
-    has_scale = ks_all is not None
-    L, _, _, S, _ = k_all.shape
-    hb = next(d for d in range(min(hb, nH), 0, -1) if nH % d == 0)
-    # VMEM guard: bw rows of K+V (+scales) double-buffered within ~12MB
-    kv_bytes = 2 * k_all.dtype.itemsize
-    while bw * hb * bs * (dh * kv_bytes + 4 * has_scale) * 2 > 12 * 1024 * 1024:
-        if bs > 128:
-            bs //= 2
-        else:
-            hb = next(d for d in range(hb - 1, 0, -1) if nH % d == 0)
-    n_s = -(-S // bs)
-    scalars = jnp.concatenate(
-        [jnp.asarray(layer, jnp.int32).reshape(1), positions.astype(jnp.int32)]
-    )
-
-    qg = q.reshape(B, bw, nH, dh)
-    indg = indir.reshape(B, bw, S)
-    kg = k_all.reshape(L, B, bw, nH, S, dh)
-    vg = v_all.reshape(L, B, bw, nH, S, dh)
-
-    def _clamp(g, s, sr):
-        m = sr[1 + g * bw]
-        for j in range(1, bw):
-            m = jnp.maximum(m, sr[1 + g * bw + j])
-        return jnp.minimum(s, m // bs)
-
-    kv_spec = pl.BlockSpec(
-        (1, 1, bw, hb, bs, dh),
-        lambda g, h, s, sr: (sr[0], g, 0, h, _clamp(g, s, sr), 0),
-    )
-    sc_spec = pl.BlockSpec(
-        (1, 1, bw, hb, bs),
-        lambda g, h, s, sr: (sr[0], g, 0, h, _clamp(g, s, sr)),
-    )
-    in_specs = [
-        pl.BlockSpec((1, bw, hb, dh), lambda g, h, s, sr: (g, 0, h, 0)),
-        pl.BlockSpec(
-            (1, bw, bs), lambda g, h, s, sr: (g, 0, _clamp(g, s, sr))
-        ),
-        kv_spec,
+    h = pl.program_id(1)
+    sp = pl.program_id(2)
+    layer = layer_ref[0]
+    pos = pos_ref[b]
+    dh = q_ref.shape[-1]
+    w = dh // lanes  # words per cached vector
+    # int8 slabs arrive as int16 words (two head-dim lanes per word, see
+    # _decode): lane jl of a word holds element jl + lanes * i of the vector
+    qs = [
+        [q_ref[r, pl.ds(jl, w, lanes)].astype(jnp.float32) * sm_scale
+         for jl in range(lanes)]
+        for r in range(g)
     ]
-    operands = [qg, indg, kg]
-    if has_scale:
-        ksg = ks_all.reshape(L, B, bw, nH, S)
-        vsg = vs_all.reshape(L, B, bw, nH, S)
-        in_specs += [sc_spec, kv_spec, sc_spec]
-        operands += [ksg, vg, vsg]
-    else:
-        in_specs += [kv_spec]
-        operands += [vg]
-    R = bw * hb
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, nH // hb, n_s),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (1, bw, hb, dh), lambda g, h, s, sr: (g, 0, h, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((R, 128), jnp.float32),
-            pltpu.VMEM((R, 128), jnp.float32),
-            pltpu.VMEM((R, dh), jnp.float32),
-        ],
+    # an int4 slab holds positions (2i, 2i+1) in one byte: a chunk is then
+    # processed as its even and its odd positions
+    halves = 2 if (k_packed or v_packed) else 1
+    n = bk // halves
+
+    def locate(c):
+        """(second slab index, offset) of logical chunk ``c``."""
+        start = c * bk
+        if pt_ref is None:
+            return b, start
+        return pt_ref[b, start // ps], start % ps
+
+    def load(ref, sref, packed, idx, off, j):
+        """Values [lanes x (n, w)] and scales (n,) of half ``j`` of a chunk."""
+        if packed:
+            words = ref[layer, idx, h, pl.ds(off // 2, n), :]
+            vals = [_bits(words, 8 * jl + 4 * j, 4) for jl in range(lanes)]
+        else:
+            rows = pl.ds(off + j, n, halves)
+            words = ref[layer, idx, h, rows, :]
+            if lanes == 1:
+                vals = [words.astype(jnp.float32)]
+            else:
+                vals = [_bits(words, 8 * jl, 8) for jl in range(lanes)]
+        scale = None
+        if sref is not None:
+            scale = sref[layer, idx, h, pl.ds(off + j, n, halves)]
+            scale = scale.astype(jnp.float32)
+        return vals, scale
+
+    def body(c, carry):
+        accs, ms, ls = carry
+        accs = [list(a) for a in accs]
+        ms, ls = list(ms), list(ls)
+        idx, off = locate(c)
+        for j in range(halves):
+            kf, ksc = load(k_ref, ks_ref, k_packed, idx, off, j)
+            vf, vsc = load(v_ref, vs_ref, v_packed, idx, off, j)
+            valid = c * bk + j + halves * jnp.arange(n) <= pos  # [n]
+            # stale tail bytes may hold NaN: 0 * NaN would poison the sum
+            vf = [jnp.where(valid[:, None], x, 0.0) for x in vf]
+            for r in range(g):
+                s = sum(
+                    jnp.sum(kf[jl] * qs[r][jl][None, :], axis=1)
+                    for jl in range(lanes)
+                )  # [n]
+                if ksc is not None:
+                    s = s * ksc
+                s = jnp.where(valid, s, MASK_VALUE)
+                m_new = jnp.maximum(ms[r], jnp.max(s))
+                alpha = jnp.exp(ms[r] - m_new)
+                p = jnp.where(valid, jnp.exp(s - m_new), 0.0)
+                ls[r] = alpha * ls[r] + jnp.sum(p)
+                pw = p if vsc is None else p * vsc
+                for jl in range(lanes):
+                    accs[r][jl] = alpha * accs[r][jl] + jnp.sum(
+                        pw[:, None] * vf[jl], axis=0
+                    )
+                ms[r] = m_new
+        return tuple(tuple(a) for a in accs), tuple(ms), tuple(ls)
+
+    init = (
+        tuple(tuple(jnp.zeros((w,), jnp.float32) for _ in range(lanes))
+              for _ in range(g)),
+        tuple(jnp.float32(MASK_VALUE) for _ in range(g)),
+        tuple(jnp.float32(0.0) for _ in range(g)),
     )
-    out = pl.pallas_call(
-        functools.partial(
-            _beam_kernel, sm_scale=sm_scale, bs=bs, n_s=n_s, hb=hb, bw=bw,
-            has_scale=has_scale,
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, bw, nH, dh), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * BB * bw * nH * S * dh,
-            bytes_accessed=2 * BB * nH * S * dh * k_all.dtype.itemsize,
-            transcendentals=BB * nH * S,
-        ),
-        interpret=interpret,
-    )(scalars, *operands)
-    return out.reshape(BB, nH, dh)
+    lo = sp * chunks_per_split
+    hi = jnp.minimum(lo + chunks_per_split, pos // bk + 1)
+    accs, ms, ls = lax.fori_loop(lo, hi, body, init)
+    for r in range(g):
+        for jl in range(lanes):
+            o_ref[r, pl.ds(jl, w, lanes)] = accs[r][jl]
+        m_ref[r] = ms[r]
+        l_ref[r] = ls[r]
 
 
-@functools.partial(jax.jit, static_argnames=("sm_scale", "hb", "interpret"))
-def flash_decode_paged(
-    q: jax.Array,  # [B, nH, dh] (nH may exceed the pool's KV heads: GQA)
-    pk: jax.Array,  # [L, P, nKV, ps, dh] int8 or float page-pool slab
-    pks,  # [L, P, nKV, ps] scales, or None for float pages
-    pv: jax.Array,
-    pvs,
-    layer: jax.Array,  # scalar
-    positions: jax.Array,  # [B] — newest-token LOGICAL slot (inclusive mask)
-    page_table: jax.Array,  # [B, n_pg] int32 physical page per logical chunk
-    sm_scale: float,
-    hb: int = 40,
-    interpret: bool = False,
-) -> jax.Array:
-    """Block-table decode attention over a PAGED KV pool (engine/paged_kv.py).
+def _words(x):
+    """An int8 slab [..., dh] viewed as int16 words [..., dh/2] (a bitcast).
 
-    Identical math to flash_decode_stacked — the kernel body is shared — with
-    the sequence-chunk grid resolved through a scalar-prefetched block table:
-    chunk size == page size, and grid step (b, h, s) streams physical page
-    ``page_table[b, min(s, pos_b // ps)]``. The clamp keeps reads
-    length-proportional exactly like the dense kernel (revisited block index
-    -> the Pallas pipeline skips the re-fetch), and the whole-page block keeps
-    the [ps, dh] minor layout canonical — no gather, no relayout pressure at
-    any pool width (the dense pool's batched scatter forces wide pools off
-    the kernel; paged pools never scatter)."""
+    The Triton lowering computes element offsets in 32 bits for arrays of at
+    most 2**32 bytes, so an int8 slab between 2 and 4 GiB — a 13B KV pool —
+    would overflow them; as int16 words the element count halves."""
+    return jax.lax.bitcast_convert_type(
+        x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2)), jnp.int16
+    )
+
+
+def _decode(
+    q, k, ks, v, vs, layer, positions, page_table, *, sm_scale, seq_len, ps, bk,
+    k_packed, v_packed, interpret, num_warps, num_stages,
+):
     B, nH, dh = q.shape
-    has_scale = pks is not None
-    L, P, nKV, psk, dh2 = pk.shape
-    # packed int4 pages carry ps/2 position-pair bytes; the scale slab always
-    # has the UNPACKED page size, which defines the grid and mask arithmetic
-    ps = pks.shape[3] if has_scale else psk
-    k_packed = has_scale and 2 * psk == ps
-    v_packed = has_scale and 2 * pv.shape[3] == ps
-    if k_packed or v_packed:
-        assert ps >= 256, "packed pages need page_size >= 256 (sublane tile)"
-    n_pg = page_table.shape[1]
-    assert (dh, ) == (dh2, ) and nH % nKV == 0
+    nKV = k.shape[2]
+    assert nH % nKV == 0
     g = nH // nKV
-    q = q.reshape(B, nKV, g, dh)
-    hb = next(d for d in range(min(hb, nKV), 0, -1) if nKV % d == 0)
-    # VMEM guard: chunk size is pinned to the page size, so only hb shrinks
-    kv_bytes = (2 - k_packed * 0.5 - v_packed * 0.5) * pk.dtype.itemsize
-    while hb > 1 and hb * ps * (dh * kv_bytes + 4 * has_scale) * 2 > 12 * 1024 * 1024:
-        hb = next(d for d in range(hb - 1, 0, -1) if nKV % d == 0)
-    scalars = jnp.concatenate([
+    lanes = 2 if k.dtype == jnp.int8 else 1
+    assert (v.dtype == jnp.int8) == (lanes == 2), "K and V slabs: both int8 or both float"
+    if lanes == 2:
+        k, v = _words(k), _words(v)
+    n_chunks = seq_len // bk
+    n_split = max(1, min(n_chunks, -(-_TARGET_PROGRAMS // (B * nKV))))
+    per_split = -(-n_chunks // n_split)
+    n_split = -(-n_chunks // per_split)
+    whole = pl.no_block_spec  # the kernel indexes these itself
+    operands = [
         jnp.asarray(layer, jnp.int32).reshape(1),
         positions.astype(jnp.int32),
-        page_table.astype(jnp.int32).reshape(-1),
-    ])
-
-    def _page(b, s, sr):
-        sc = jnp.minimum(s, sr[1 + b] // ps)  # clamp past the valid prefix
-        return sr[1 + B + b * n_pg + sc]
-
-    def kv_spec(packed):
-        rows = ps // 2 if packed else ps
-        return pl.BlockSpec(
-            (1, 1, hb, rows, dh),
-            lambda b, h, s, sr: (sr[0], _page(b, s, sr), h, 0, 0),
-        )
-
-    sc_spec = pl.BlockSpec(
-        (1, 1, hb, ps), lambda b, h, s, sr: (sr[0], _page(b, s, sr), h, 0)
-    )
-    in_specs = [
-        pl.BlockSpec((1, hb, g, dh), lambda b, h, s, sr: (b, h, 0, 0)),
-        kv_spec(k_packed),
+        None if page_table is None else page_table.astype(jnp.int32),
+        q.reshape(B, nKV, g, dh),
+        k, ks, v, vs,
     ]
-    operands = [q, pk]
-    if has_scale:
-        in_specs += [sc_spec, kv_spec(v_packed), sc_spec]
-        operands += [pks, pv, pvs]
-    else:
-        in_specs += [kv_spec(False)]
-        operands += [pv]
-    R = hb * g
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, nKV // hb, n_pg),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (1, hb, g, dh), lambda b, h, s, sr: (b, h, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((R, 128), jnp.float32),
-            pltpu.VMEM((R, 128), jnp.float32),
-            pltpu.VMEM((R, dh), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
+    in_specs = [
+        whole, whole, None if page_table is None else whole,
+        pl.BlockSpec((None, None, g, dh), lambda b, h, s: (b, h, 0, 0)),
+        whole, None if ks is None else whole,
+        whole, None if vs is None else whole,
+    ]
+    part = (B, nKV, n_split, g)
+    o, m, l = pl.pallas_call(
         functools.partial(
-            _kernel, sm_scale=sm_scale, bs=ps, n_s=n_pg, hb=hb, g=g,
-            has_scale=has_scale, k_packed=k_packed, v_packed=v_packed,
-            compute_dtype=jnp.float32 if interpret else jnp.bfloat16,
+            _kernel, g=g, sm_scale=sm_scale, bk=bk, ps=ps,
+            chunks_per_split=per_split, k_packed=k_packed, v_packed=v_packed,
+            lanes=lanes,
         ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, nKV, g, dh), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * B * nH * n_pg * ps * dh,
-            bytes_accessed=2 * B * nKV * n_pg * ps * dh * pk.dtype.itemsize,
-            transcendentals=B * nH * n_pg * ps,
+        grid=(B, nKV, n_split),
+        in_specs=in_specs,
+        out_specs=[
+            pl.BlockSpec((None, None, None, g, dh), lambda b, h, s: (b, h, s, 0, 0)),
+            pl.BlockSpec((None, None, None, g), lambda b, h, s: (b, h, s, 0)),
+            pl.BlockSpec((None, None, None, g), lambda b, h, s: (b, h, s, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct(part + (dh,), jnp.float32),
+            jax.ShapeDtypeStruct(part, jnp.float32),
+            jax.ShapeDtypeStruct(part, jnp.float32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages
         ),
         interpret=interpret,
-    )(scalars, *operands)
-    return out.reshape(B, nH, dh)
+        name="ftcf_decode_attention",
+    )(*operands)
+    # combine the splits (a split with no work has m = MASK_VALUE, l = 0)
+    mx = jnp.max(m, axis=2, keepdims=True)
+    w = jnp.exp(m - mx)
+    num = jnp.sum(o * w[..., None], axis=2)
+    den = jnp.maximum(jnp.sum(l * w, axis=2), 1e-20)
+    return (num / den[..., None]).reshape(B, nH, dh).astype(q.dtype)
 
 
-@functools.partial(jax.jit, static_argnames=("sm_scale", "hb", "interpret"))
-def flash_chunk_paged(
-    q: jax.Array,  # [B, C, nH, dh] — C CONSECUTIVE query positions per row
-    pk: jax.Array,  # [L, P, nKV, ps(/2), dh]
-    pks,
-    pv: jax.Array,
-    pvs,
-    layer: jax.Array,
-    pos: jax.Array,  # [B] chunk START positions
-    page_table: jax.Array,  # [B, n_pg]
-    sm_scale: float,
-    hb: int = 8,
-    interpret: bool = False,
-) -> jax.Array:
-    """Chunked-prefill attention over a PAGED pool: the multi-query
-    generalization of flash_decode_paged. The C chunk queries ride the
-    kernel's per-KV-head row axis (g = C * gqa) with per-row causal bounds
-    pos + query_offset — expressible without per-query scalars because chunk
-    positions are consecutive. Replaces the XLA page-gather fallback that
-    materialized the whole logical cache per layer on chunk ticks (measured
-    +16% per chunk tick at 13B B=8)."""
-    B, C, nH, dh = q.shape
-    has_scale = pks is not None
-    L, P, nKV, psk, dh2 = pk.shape
-    ps = pks.shape[3] if has_scale else psk
-    k_packed = has_scale and 2 * psk == ps
-    v_packed = has_scale and 2 * pv.shape[3] == ps
-    n_pg = page_table.shape[1]
-    gq = nH // nKV
-    g = C * gq
-    qg = (
-        q.reshape(B, C, nKV, gq, dh)
-        .transpose(0, 2, 1, 3, 4)
-        .reshape(B, nKV, g, dh)
-    )
-    hb = next(d for d in range(min(hb, nKV), 0, -1) if nKV % d == 0)
-    # VMEM guard: R = hb * C * gq rows of fp32 scratch + the KV block
-    kv_bytes = (2 - k_packed * 0.5 - v_packed * 0.5) * pk.dtype.itemsize
-    while hb > 1 and (
-        hb * ps * (dh * kv_bytes + 4 * has_scale) * 2
-        + hb * g * (256 + dh) * 4
-    ) > 12 * 1024 * 1024:
-        hb = next(d for d in range(hb - 1, 0, -1) if nKV % d == 0)
-    scalars = jnp.concatenate([
-        jnp.asarray(layer, jnp.int32).reshape(1),
-        pos.astype(jnp.int32),
-        page_table.astype(jnp.int32).reshape(-1),
-    ])
-
-    def _page(b, s, sr):
-        sc = jnp.minimum(s, (sr[1 + b] + C - 1) // ps)
-        return sr[1 + B + b * n_pg + sc]
-
-    def kv_spec(packed):
-        rows = ps // 2 if packed else ps
-        return pl.BlockSpec(
-            (1, 1, hb, rows, dh),
-            lambda b, h, s, sr: (sr[0], _page(b, s, sr), h, 0, 0),
-        )
-
-    sc_spec = pl.BlockSpec(
-        (1, 1, hb, ps), lambda b, h, s, sr: (sr[0], _page(b, s, sr), h, 0)
-    )
-    in_specs = [
-        pl.BlockSpec((1, hb, g, dh), lambda b, h, s, sr: (b, h, 0, 0)),
-        kv_spec(k_packed),
-    ]
-    operands = [qg, pk]
-    if has_scale:
-        in_specs += [sc_spec, kv_spec(v_packed), sc_spec]
-        operands += [pks, pv, pvs]
-    else:
-        in_specs += [kv_spec(False)]
-        operands += [pv]
-    R = hb * g
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, nKV // hb, n_pg),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (1, hb, g, dh), lambda b, h, s, sr: (b, h, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((R, 128), jnp.float32),
-            pltpu.VMEM((R, 128), jnp.float32),
-            pltpu.VMEM((R, dh), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
-        functools.partial(
-            _kernel, sm_scale=sm_scale, bs=ps, n_s=n_pg, hb=hb, g=g, gq=gq,
-            has_scale=has_scale, k_packed=k_packed, v_packed=v_packed,
-            compute_dtype=jnp.float32 if interpret else jnp.bfloat16,
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, nKV, g, dh), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * B * nH * C * n_pg * ps * dh,
-            bytes_accessed=2 * B * nKV * n_pg * ps * dh * pk.dtype.itemsize,
-            transcendentals=B * nH * C * n_pg * ps,
-        ),
-        interpret=interpret,
-    )(scalars, *operands)
-    return (
-        out.reshape(B, nKV, C, gq, dh)
-        .transpose(0, 2, 1, 3, 4)
-        .reshape(B, C, nH, dh)
-    )
+_STATIC = ("sm_scale", "bs", "interpret", "num_warps", "num_stages")
 
 
-@functools.partial(jax.jit, static_argnames=("sm_scale", "hb", "bs", "interpret"))
+@functools.partial(jax.jit, static_argnames=_STATIC)
 def flash_decode_stacked(
-    q: jax.Array,  # [B, nH, dh] bf16 (nH may exceed the cache's KV heads: GQA)
-    k_all: jax.Array,  # [L, B, nKV, S, dh] int8 or bf16
+    q: jax.Array,  # [B, nH, dh] (nH may exceed the cache's KV heads: GQA)
+    k_all: jax.Array,  # [L, B, nKV, S(/2), dh] int8 or float
     ks_all,  # [L, B, nKV, S] scales, or None for float caches
     v_all: jax.Array,
     vs_all,
     layer: jax.Array,  # scalar
-    positions: jax.Array,  # [B] — newest-token slot per row (inclusive mask)
+    positions: jax.Array,  # [B] newest-token slot per row (inclusive bound)
     sm_scale: float,
-    hb: int = 40,  # KV heads per grid block (largest divisor of nKV is taken)
-    bs: int = 256,  # sequence chunk (any S; ragged tail masked)
-    interpret: bool = False,  # CPU emulation for tests
+    bs: int = 64,  # positions per chunk (the largest power of two <= bs dividing S)
+    interpret: bool = False,
+    num_warps: int = 4,
+    num_stages: int = 2,
 ) -> jax.Array:
-    B, nH, dh = q.shape
-    has_scale = ks_all is not None
-    # packed int4 slabs carry S/2 position-pair bytes; the scale slab always
-    # has the UNPACKED length, which defines the grid and mask arithmetic
-    L, B2, nKV, Sk, dh2 = k_all.shape
-    S = ks_all.shape[3] if has_scale else Sk
-    k_packed = has_scale and 2 * Sk == S
-    v_packed = has_scale and 2 * v_all.shape[3] == S
-    assert (B, dh) == (B2, dh2) and nH % nKV == 0
-    g = nH // nKV  # query heads per KV head (GQA; 1 = plain MHA)
-    q = q.reshape(B, nKV, g, dh)
-    hb = next(d for d in range(min(hb, nKV), 0, -1) if nKV % d == 0)
-    # VMEM guard: K+V (+scales) blocks, double-buffered, must fit ~16MB
-    kv_bytes = (2 - k_packed * 0.5 - v_packed * 0.5) * k_all.dtype.itemsize
-    while hb * bs * (dh * kv_bytes + 4) * 2 > 12 * 1024 * 1024:
-        bs //= 2
-    bs = min(bs, -(-S // 128) * 128)
-    if k_packed or v_packed:
-        bs = max(bs, 256)  # bs//2 must stay a sublane multiple of 128
-    n_s = -(-S // bs)  # ceil: tail chunk rows are masked by the pos bound
-    scalars = jnp.concatenate(
-        [jnp.asarray(layer, jnp.int32).reshape(1), positions.astype(jnp.int32)]
+    """Decode attention over the dense stacked cache (engine/kv_cache.py)."""
+    S = ks_all.shape[3] if ks_all is not None else k_all.shape[3]
+    bk = _pow2_divisor(S, bs)
+    return _decode(
+        q, k_all, ks_all, v_all, vs_all, layer, positions, None,
+        sm_scale=sm_scale, seq_len=S, ps=0, bk=bk,
+        k_packed=k_all.shape[3] * 2 == S, v_packed=v_all.shape[3] * 2 == S,
+        interpret=interpret, num_warps=num_warps, num_stages=num_stages,
     )
-    # Chunks wholly past this row's newest token carry no valid data: clamp
-    # their block index to the last valid chunk. Consecutive grid steps then
-    # map to the SAME block and the Pallas pipeline skips the re-fetch, so the
-    # kernel streams only ceil(pos/bs) chunks of cache while the XLA path
-    # always reads the full allocation — the length-proportional read the
-    # reference gets from its per-timestep loop (decoder_masked_multihead_
-    # attention_template.hpp, ti < tlength loop).
-    def _s_clamp(b, s, sr):
-        return jnp.minimum(s, sr[1 + b] // bs)
 
-    def kv_spec(packed):
-        rows = bs // 2 if packed else bs
-        return pl.BlockSpec(
-            (1, 1, hb, rows, dh),
-            lambda b, h, s, sr: (sr[0], b, h, _s_clamp(b, s, sr), 0),
-        )
 
-    sc_spec = pl.BlockSpec(
-        (1, 1, hb, bs), lambda b, h, s, sr: (sr[0], b, h, _s_clamp(b, s, sr))
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def flash_decode_paged(
+    q: jax.Array,  # [B, nH, dh]
+    pk: jax.Array,  # [L, P, nKV, ps(/2), dh] int8 or float page pool
+    pks,  # [L, P, nKV, ps] scales, or None for float pages
+    pv: jax.Array,
+    pvs,
+    layer: jax.Array,  # scalar
+    positions: jax.Array,  # [B] newest-token LOGICAL slot (inclusive bound)
+    page_table: jax.Array,  # [B, n_pg] physical page of each logical page
+    sm_scale: float,
+    bs: int = 64,
+    interpret: bool = False,
+    num_warps: int = 4,
+    num_stages: int = 2,
+) -> jax.Array:
+    """Block-table decode attention over the paged pool (engine/paged_kv.py):
+    chunk ``c`` of a row lives in page ``page_table[b, c*bk // ps]``."""
+    ps = pks.shape[3] if pks is not None else pk.shape[3]
+    bk = _pow2_divisor(ps, bs)
+    return _decode(
+        q, pk, pks, pv, pvs, layer, positions, page_table,
+        sm_scale=sm_scale, seq_len=page_table.shape[1] * ps, ps=ps, bk=bk,
+        k_packed=pk.shape[3] * 2 == ps, v_packed=pv.shape[3] * 2 == ps,
+        interpret=interpret, num_warps=num_warps, num_stages=num_stages,
     )
-    in_specs = [
-        pl.BlockSpec((1, hb, g, dh), lambda b, h, s, sr: (b, h, 0, 0)),
-        kv_spec(k_packed),
-    ]
-    operands = [q, k_all]
-    if has_scale:
-        in_specs += [sc_spec, kv_spec(v_packed), sc_spec]
-        operands += [ks_all, v_all, vs_all]
-    else:
-        in_specs += [kv_spec(False)]
-        operands += [v_all]
-    R = hb * g
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, nKV // hb, n_s),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (1, hb, g, dh), lambda b, h, s, sr: (b, h, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((R, 128), jnp.float32),  # running max (col 0)
-            pltpu.VMEM((R, 128), jnp.float32),  # running denom (col 0)
-            pltpu.VMEM((R, dh), jnp.float32),  # running numerators
-        ],
-    )
-    out = pl.pallas_call(
-        functools.partial(
-            _kernel, sm_scale=sm_scale, bs=bs, n_s=n_s, hb=hb, g=g,
-            has_scale=has_scale, k_packed=k_packed, v_packed=v_packed,
-            # interpret mode runs the dots on CPU, whose thunks reject bf16
-            compute_dtype=jnp.float32 if interpret else jnp.bfloat16,
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, nKV, g, dh), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * B * nH * S * dh,
-            bytes_accessed=2 * B * nKV * S * dh * k_all.dtype.itemsize,
-            transcendentals=B * nH * S,
-        ),
-        interpret=interpret,
-    )(scalars, *operands)
-    return out.reshape(B, nH, dh)

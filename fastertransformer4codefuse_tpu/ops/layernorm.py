@@ -1,9 +1,10 @@
 """LayerNorm in fp32 statistics.
 
 Replaces the reference's invokeGeneralLayerNorm / fused residual variants
-(/root/reference/src/fastertransformer/kernels/layernorm_kernels.cu). On TPU
-these are plain VPU element-wise ops; XLA fuses them into adjacent matmuls, so
-no Pallas kernel is needed — only the fp32-statistics discipline matters.
+(/root/reference/src/fastertransformer/kernels/layernorm_kernels.cu). These
+are plain element-wise ops and reductions that XLA fuses with their
+neighbours, so no kernel is needed — only the fp32-statistics discipline
+matters.
 """
 from __future__ import annotations
 

@@ -1,15 +1,15 @@
-"""Linear / matmul with optional weight-only int8 dequantization.
+"""Linear / matmul with optional weight-only int8/int4 dequantization.
 
-TPU-native analog of the reference's GEMM dispatch: cuBLAS for dense
+The analog of the reference's GEMM dispatch: cuBLAS for dense
 (/root/reference/src/fastertransformer/utils/cublasMMWrapper.cc) and the CUTLASS
 fpA-intB mixed GEMM for int8 weight-only
 (/root/reference/src/fastertransformer/kernels/cutlass_kernels/fpA_intB_gemm/).
 
-On TPU the dense path is a plain ``jnp.dot`` (XLA tiles it onto the MXU and
-fuses the bias/activation epilogue); the int8 path multiplies the int8 payload
-converted to the activation dtype and applies the per-output-channel scale on
-the fp32 accumulator — either via a fused Pallas kernel
-(ops/quant_matmul.py) or an XLA composition fallback.
+Every path is plain XLA: the dense path is a ``jnp.dot`` (XLA picks cuBLAS or
+its own GEMM and fuses the bias/activation epilogue); the int8 path multiplies
+the int8 payload converted to the activation dtype and applies the
+per-output-channel scale on the fp32 accumulator, which XLA can fuse into the
+GEMM's prologue and epilogue.
 """
 from __future__ import annotations
 
@@ -20,24 +20,21 @@ import jax
 import jax.numpy as jnp
 
 from ..models.params import QuantizedTensor
-
-# Toggled by engine setup; Pallas kernels only exist on TPU backends.
-_USE_PALLAS = False
-_ON_TPU = False
+from . import routes
 
 
-def set_use_pallas(flag: bool) -> None:
-    global _USE_PALLAS
-    _USE_PALLAS = bool(flag)
-
-
-def set_on_tpu(flag: bool) -> None:
-    global _ON_TPU
-    _ON_TPU = bool(flag)
-
-
-def use_pallas() -> bool:
-    return _USE_PALLAS
+def apply_act(y: jax.Array, act: str) -> jax.Array:
+    """Activation by name; exact-erf gelu is the HF/CodeFuse checkpoint
+    default, tanh-gelu the reference engine's own FFN formula."""
+    if act == "gelu":
+        return jax.nn.gelu(y, approximate=False)
+    if act == "gelu-tanh":
+        return jax.nn.gelu(y, approximate=True)
+    if act == "relu":
+        return jax.nn.relu(y)
+    if act == "silu":
+        return jax.nn.silu(y)
+    raise ValueError(f"unknown activation {act!r}")
 
 
 def _as_2d_weight(w: QuantizedTensor):
@@ -54,16 +51,14 @@ def quantized_matmul_xla(x: jax.Array, w: QuantizedTensor) -> jax.Array:
     """int8/int4 weight-only matmul as an XLA composition.
 
     y = (x @ q.astype(x.dtype)) * scale  — the scale is per output channel so it
-    commutes out of the contraction; the convert feeds the MXU directly and the
-    scale multiply fuses into the matmul epilogue.
+    commutes out of the contraction; the convert can fuse into the GEMM's
+    operand load and the scale multiply into its epilogue.
 
-    bits=4 (fallback — the Pallas kernels are the production path): the
-    nibble unpack runs as plain int8 shifts (backend-portable; TPU's
-    ``bitcast_convert_type(int4)`` had multi-minute compiles and its nibble
-    order is backend-defined).
+    bits=4: the nibble unpack runs as plain int8 shifts, and the weight is
+    dequantized before the dot.
     """
     if w.group_size or w.bits == 4:
-        # generic fallback: dequantize the (per-layer) weight, plain dot
+        # dequantize the (per-layer) weight, plain dot
         out_shape = x.shape[:-1] + w.q.shape[w.q.ndim - 1:]
         x2d = x.reshape(-1, x.shape[-1])
         wd = w.dequantize(x.dtype).reshape(x.shape[-1], -1)
@@ -78,18 +73,14 @@ def quantized_matmul_xla(x: jax.Array, w: QuantizedTensor) -> jax.Array:
 
 
 # SmoothQuant-style activation-int8 GEMMs (the reference's int8_mode=2
-# semantics — ckpt/smoothquant.py). Engine-set via RuntimeConfig.act_int8.
-_ACT_INT8 = False
-# Calls narrower than this stay on the weight-only path: decode-width GEMMs
+# semantics — ckpt/smoothquant.py) when ``routes.current().act_int8``
+# (RuntimeConfig.act_int8). Calls narrower than this stay on the weight-only
+# path: decode-width GEMMs
 # are weight-bytes-bound, so activation quantization saves nothing there and
-# the per-token quant ops are pure overhead. Prefill/chunk calls (M = B*S)
-# clear the bar and ride the 2x-rate int8xint8 MXU dot.
+# the per-token quant ops are pure overhead; an int8 tensor-core tile is 16
+# rows high. Prefill/chunk calls (M = B*S) clear the bar and ride the int8 x
+# int8 dot, which the tensor cores run at twice the bf16 rate.
 _A8_MIN_M = 16
-
-
-def set_act_int8(flag: bool) -> None:
-    global _ACT_INT8
-    _ACT_INT8 = bool(flag)
 
 
 def w8a8_matmul(
@@ -100,12 +91,11 @@ def w8a8_matmul(
     act=None,
     out_dtype=None,
 ) -> jax.Array:
-    """Per-token dynamic activation int8 + int8xint8 MXU dot + fp32 requant.
+    """Per-token dynamic activation int8 + int8 x int8 dot + fp32 requant.
 
     y = (round(x / s_x) @ q) * s_x * scale — both scale factors commute out
-    of the int32 accumulator. The int8 dot runs at 2x the bf16 MXU rate on
-    TPU; accuracy rides the SmoothQuant fold (per-token s_x absorbs what the
-    fold moved out of the activations)."""
+    of the int32 accumulator. Accuracy rides the SmoothQuant fold (per-token
+    s_x absorbs what the fold moved out of the activations)."""
     xf = x2d.astype(jnp.float32)
     amax = jnp.max(jnp.abs(xf), axis=1)
     s_x = jnp.where(amax > 0, amax / 127.0, 1.0)
@@ -119,13 +109,10 @@ def w8a8_matmul(
 
 
 def _bias_act_xla(y: jax.Array, bias, act) -> jax.Array:
-    """Plain-XLA bias + activation (fuses into the surrounding computation on
-    any backend); the Pallas kernels absorb these in their epilogue instead."""
+    """Bias + activation as XLA ops (they fuse into the GEMM's epilogue)."""
     if bias is not None:
         y = y + bias.astype(y.dtype)
     if act is not None:
-        from .quant_matmul_w4 import apply_act
-
         y = apply_act(y, act)
     return y
 
@@ -137,15 +124,13 @@ def quantized_matmul(
     bias: Optional[jax.Array] = None,
     act: Optional[str] = None,
 ) -> jax.Array:
-    """Dispatch; bias/activation are ALWAYS applied (in the Pallas kernel
-    epilogue on the stacked TPU paths, as XLA ops elsewhere). ``layer`` set +
-    stacked [L, K, N] weight selects the scalar-prefetch Pallas kernels, which
-    DMA tiles straight out of the stacked HBM array — a dynamic layer slice
-    cannot fuse into a Pallas custom call and would materialize a full
-    per-GEMM weight copy."""
+    """Dispatch; bias/activation are always applied. ``layer`` set + a
+    stacked [L, K, N] weight selects that layer (a leading-axis dynamic
+    slice that feeds the dot)."""
     stacked = layer is not None and w.q.ndim == 3
+    route = routes.current()
     if (
-        _ACT_INT8
+        route.act_int8
         and w.bits == 8
         and not w.group_size
         and x.ndim >= 3
@@ -154,15 +139,10 @@ def quantized_matmul(
         # so activation quantization is pure overhead there
         and math.prod(x.shape[:-1]) >= _A8_MIN_M
     ):
-        # SmoothQuant W8A8 (batch-wide calls only — see _A8_MIN_M). The
-        # stacked weight's layer slice is a leading-axis dynamic-slice
-        # feeding a plain dot; XLA fuses it (unlike a Pallas custom call).
-        # bits == 8 ONLY, measured: a W4A8 variant (sign-extend nibbles ->
-        # int8 dot; per-channel scale still commutes) ran 335.9 vs 216.1 ms
-        # on the 13B 1024-token prefill — XLA materializes the full [K, N]
-        # unpacked weight per layer inside the scan instead of fusing the
-        # shifts into the dot, and that copy swamps the MXU win. Group-wise
-        # scales sit inside K and cannot commute at all.
+        # SmoothQuant W8A8 (batch-wide calls only — see _A8_MIN_M). bits == 8
+        # ONLY: int4 nibbles would be unpacked into a full [K, N] int8 copy
+        # per layer before the dot, and group-wise scales sit inside K, so
+        # they cannot commute out of the int32 accumulator at all.
         if stacked:
             q = jax.lax.dynamic_index_in_dim(w.q, layer, 0, keepdims=False)
             scale = jax.lax.dynamic_index_in_dim(
@@ -170,113 +150,37 @@ def quantized_matmul(
             )
         else:
             q, scale = _as_2d_weight(w)
-        b = bias
-        if b is not None and b.ndim == 3:
-            b = b[layer, 0]
         out_shape = x.shape[:-1] + w.q.shape[2 if stacked else 1:]
         y = w8a8_matmul(
-            x.reshape(-1, x.shape[-1]), q, scale, bias=b, act=act,
+            x.reshape(-1, x.shape[-1]), q, scale, bias=bias, act=act,
             out_dtype=x.dtype,
         )
         return y.reshape(out_shape)
-    if stacked and _ON_TPU:
-        from .quant_matmul_w4 import PALLAS_FUSABLE_ACTS, apply_act
+    if stacked and route.int8_gemv and w.bits == 8 and not w.group_size:
+        # the Triton GEMV (GPU engines) reads the layer's weight in place
+        # instead of XLA's per-layer slice copy
+        from . import int8_gemv
 
-        # Exact-erf gelu (CodeFuse's default) cannot lower inside a Mosaic
-        # kernel (no erf primitive); keep the bias fused and run the
-        # activation as the one trailing XLA op instead.
-        k_act, post_act = (act, None) if act in PALLAS_FUSABLE_ACTS else (None, act)
-        x2d = x.reshape(-1, x.shape[-1])
-        out_shape = x.shape[:-1] + w.q.shape[2:]
-        # [L, 1, N] stacked biases pass through whole (indexed in-kernel by
-        # the prefetched layer); per-layer biases flatten to [N]
-        b2d = bias if bias is not None and bias.ndim == 3 else (
-            None if bias is None else bias.reshape(-1)
-        )
-        y = None
-        if w.bits == 4 and w.group_size:
-            from .quant_matmul_w4 import quant_matmul_w4_group_stacked
-
-            y = quant_matmul_w4_group_stacked(
-                x2d, w.q, w.scale, layer, G=w.group_size, out_dtype=x.dtype,
-                bias=b2d, act=k_act,
+        M, K, N = math.prod(x.shape[:-1]), w.q.shape[1], w.q.shape[2]
+        if int8_gemv.supported(M, K, N):
+            y = int8_gemv.int8_gemv_stacked(
+                x.reshape(M, K), w.q, w.scale.reshape(w.q.shape[0], N), layer,
+                interpret=route.interpret,
             )
-        elif w.bits == 4:
-            from .quant_matmul_w4 import quant_matmul_w4_pallas_stacked
-
-            y = quant_matmul_w4_pallas_stacked(
-                x2d, w.q, w.scale, layer, out_dtype=x.dtype, bias=b2d,
-                act=k_act,
-            )
-        elif _USE_PALLAS:
-            from .quant_matmul import quant_matmul_pallas_stacked
-
-            y = quant_matmul_pallas_stacked(
-                x2d, w.q, w.scale, layer, out_dtype=x.dtype, bias=b2d,
-                act=k_act,
-            )
-        if y is not None:
-            if post_act is not None:
-                y = apply_act(y, post_act)
-            return y.reshape(out_shape)
+            y = y.astype(x.dtype).reshape(x.shape[:-1] + (N,))
+            return _bias_act_xla(y, bias, act)
     if stacked:
         w = w[layer]
-    if bias is not None and bias.ndim == 3:  # stacked [L, 1, N] on a fallback path
-        bias = bias[layer, 0]
-    # bits=4 on TPU always takes the Pallas kernel: measured 22ms/step vs
-    # 35ms for the XLA bitcast double-contraction on 13B decode
-    if w.bits == 4 and _ON_TPU:
-        from .quant_matmul_w4 import quant_matmul_w4_pallas
-
-        q2d, scale = _as_2d_weight(w)
-        out_shape = x.shape[:-1] + w.q.shape[1:]
-        x2d = x.reshape(-1, x.shape[-1])
-        y = quant_matmul_w4_pallas(x2d, q2d, scale, out_dtype=x.dtype)
-        return _bias_act_xla(y.reshape(out_shape), bias, act)
-    if _USE_PALLAS and w.bits == 8:
-        from .quant_matmul import quant_matmul_pallas
-
-        q2d, scale = _as_2d_weight(w)
-        out_shape = x.shape[:-1] + w.q.shape[1:]
-        x2d = x.reshape(-1, x.shape[-1])
-        y = quant_matmul_pallas(x2d, q2d, scale, out_dtype=x.dtype)
-        return _bias_act_xla(y.reshape(out_shape), bias, act)
     return _bias_act_xla(quantized_matmul_xla(x, w), bias, act)
 
 
 def quantized_matmul_transposed_head(x: jax.Array, w: QuantizedTensor) -> jax.Array:
-    """fp32-out logits GEMM against the [K, V_pad] (k_axis=0) quantized LM head.
-
-    Int4 heads ride the per-channel W4 Pallas kernel on TPU; everywhere else
-    (and for int8) the XLA convert-into-dot composition covers it."""
+    """fp32-out logits GEMM against the [K, V_pad] (k_axis=0) quantized LM head."""
     assert w.k_axis % w.q.ndim == 0
-    if w.bits == 4 and _ON_TPU and w.group_size == 0:
-        from .quant_matmul_w4 import quant_matmul_w4_pallas
-        from .tile_tuning import lookup
-
-        # default bn=5120: the head's vocab axis is padded to a 2560 multiple
-        # at quantize time, so wide tiles divide; narrow (<=1024) tiles left
-        # the 129MB weight stream at ~24% of HBM SoL
-        M = x.shape[0]
-        bm = 256 if M >= 256 else max(16, 1 << (max(M - 1, 1)).bit_length())
-        K, N = 2 * w.q.shape[0], w.q.shape[1]
-        bn, bk = lookup("w4_head", bm, K, N) or (5120, 1024)
-        return quant_matmul_w4_pallas(
-            x, w.q, w.scale, out_dtype=jnp.float32, bn=bn, bk=bk
-        )
-    if w.bits == 4 and _ON_TPU and w.group_size:
-        # group-wise head: ride the stacked group kernel as a 1-layer stack
-        # ([None] is a metadata reshape, not a copy)
-        from .quant_matmul_w4 import quant_matmul_w4_group_stacked
-
-        return quant_matmul_w4_group_stacked(
-            x, w.q[None], w.scale[None], jnp.int32(0), G=w.group_size,
-            out_dtype=jnp.float32,
-        )
     wk = w.unpack()
     if w.group_size:
-        # XLA fallback: fold the [K/G, N] group scales into the weight before
-        # the dot (they sit inside the contraction, so no epilogue form exists)
+        # fold the [K/G, N] group scales into the weight before the dot (they
+        # sit inside the contraction, so no epilogue form exists)
         K, N = wk.shape
         G = w.group_size
         wd = (
@@ -299,15 +203,12 @@ def linear(
     """``y = act(x @ w + b)`` with QuantizedTensor dispatch.
 
     ``w`` may be a plain array ``[K, ...out]``, a per-layer QuantizedTensor, or
-    (with ``layer`` set) a stacked ``[L, K, N]`` QuantizedTensor indexed inside
-    the Pallas kernel via scalar prefetch; bias and activation ride the
-    kernel's epilogue there (and XLA's fusion everywhere else).
+    (with ``layer`` set) a stacked ``[L, K, N]`` QuantizedTensor; bias and
+    activation ride XLA's epilogue fusion.
     """
     if isinstance(w, QuantizedTensor):
         y = quantized_matmul(x, w, layer=layer, bias=b, act=act)
     else:
-        if b is not None and b.ndim == 3 and layer is not None:
-            b = b[layer, 0]  # stacked [L, 1, N] view on the dense path
         out_shape = x.shape[:-1] + w.shape[1:]
         x2d = x.reshape(-1, x.shape[-1])
         w2d = w.reshape(w.shape[0], -1)

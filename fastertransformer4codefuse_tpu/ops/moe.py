@@ -2,7 +2,7 @@
 
 The reference carries MoE kernels upstream (src/fastertransformer/kernels/
 moe_kernels.cu — CUTLASS grouped GEMM behind a softmax router; never wired
-into the CodeFuse/gptneox path). The TPU formulation here is the
+into the CodeFuse/gptneox path). The formulation here is the
 GShard/Switch lineage redesigned around static shapes:
 
   - router: fp32 softmax over E experts, top-k (Mixtral-style renormalized
@@ -31,7 +31,7 @@ from typing import Dict
 import jax
 import jax.numpy as jnp
 
-from .quant_matmul_w4 import apply_act
+from .linear import apply_act
 
 
 def moe_ffn(

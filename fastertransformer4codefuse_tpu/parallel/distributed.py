@@ -2,10 +2,10 @@
 
 ≙ the reference's MPI rank bootstrap + NCCL communicator setup
 (/root/reference/src/fastertransformer/utils/mpi_utils.cc, nccl_utils.cc, and
-the c10d-inherit hack th_op/gptneox/utils/nccl_inherit_utils.cc:8-68). On TPU
+the c10d-inherit hack th_op/gptneox/utils/nccl_inherit_utils.cc:8-68). Here
 the entire rendezvous collapses into ``jax.distributed.initialize()`` — the
-runtime wires every host's chips into one global device set, and GSPMD places
-collectives on ICI within hosts / DCN across them automatically.
+runtime wires every host's GPUs into one global device set, and GSPMD's
+collectives run on NCCL.
 """
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Join the multi-host runtime. On Cloud TPU pods arguments come from the
-    metadata server; explicit values support bare-metal/MPI-style launches
+    """Join the multi-host runtime. The coordinator address, process count
+    and process id are given explicitly, as in bare-metal/MPI-style launches
     (the analog of the reference's mpirun path, docs/gpt_guide.md:471)."""
     global _initialized
     if _initialized:

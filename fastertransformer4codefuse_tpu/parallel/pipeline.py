@@ -1,6 +1,6 @@
 """Pipeline parallelism: a "pp" mesh axis over contiguous layer blocks.
 
-TPU-native rebuild of the reference's pipeline scheme
+A rebuild of the reference's pipeline scheme
 (/root/reference/src/fastertransformer/models/gptneox/GptNeoXDecoder.cc:94-120
 contiguous layers-per-rank blocks, :252-265/:372-383 activation handoff at
 stage edges, GptNeoX.cc:780-788 microbatch pipelining via getLocalBatchSize,
@@ -9,7 +9,7 @@ GptNeoX.cc:998-1021 end-of-step broadcast):
   - Stacked layer weights [L, ...] and the KV cache [L, B, nH, S, dh] are
     sharded on the L axis over the "pp" mesh axis — each stage holds
     L/pp contiguous layers and their cache slabs. A model bigger than one
-    chip's HBM fits by raising pp.
+    card's memory fits by raising pp.
   - The forward runs under ``jax.shard_map`` manual over "pp" only; "tp"/"dp"
     stay GSPMD-auto, so the per-layer single-all-reduce TP property inside a
     stage is untouched.
@@ -23,7 +23,7 @@ GptNeoX.cc:998-1021 end-of-step broadcast):
     which accumulates the output and broadcasts it with one small psum at
     the end (the analog of the reference's per-step ftNcclBroadcast).
 
-Microbatch axes are chosen per phase for the TPU memory system:
+Microbatch axes are chosen per phase:
 
   - ``prefill`` splits the SEQUENCE into M contiguous chunks (the cache fills
     left-to-right, so chunk m's attention only needs chunks <= m — which its
@@ -142,7 +142,6 @@ def decode_step(
         cos_t, sin_t = make_rotary_tables(
             S, config.rotary_embedding_dim, config.rotary_base
         )
-        extra = model._decode_bias_views(layers_local)
 
         def inject(m):
             toks_m = jax.lax.dynamic_slice_in_dim(tokens, m * mb, mb)
@@ -173,7 +172,7 @@ def decode_step(
 
             def body(carry, l):
                 x, c = carry
-                lp = model._layer_slice(layers_local, l, extra)
+                lp = model._layer_slice(layers_local, l)
                 y, c = model.block_decode(
                     config, lp, x, c, l, cos, sin, pos_m, valid,
                     beam=beam_t, kv_skip=skip, kv_skip_mode=kv_skip_mode,

@@ -1,4 +1,4 @@
-"""GSPMD sharding rules: the TPU-native replacement for the reference's NCCL
+"""GSPMD sharding rules: the replacement for the reference's NCCL
 tensor parallelism (SURVEY §2.4).
 
 The reference column-splits QKV/FFN-up and row-splits proj/FFN-down per rank
@@ -20,9 +20,10 @@ from ..models.params import Params, QuantizedTensor
 
 
 def build_mesh(tp: int = 1, dp: int = 1, pp: int = 1, devices=None) -> Mesh:
-    """Device mesh with ("dp", "pp", "tp") axes. TP rides the fastest
-    (innermost) axis so its collectives map to nearest-neighbor ICI links; PP
-    sits between so each stage's TP group is ICI-contiguous."""
+    """Device mesh with ("dp", "pp", "tp") axes over the first
+    ``tp * dp * pp`` devices. The GPUs of one host reach each other all to
+    all over NVLink at one rate, so the axis order follows the algorithm
+    alone: TP innermost, PP between, DP outermost."""
     if devices is None:
         devices = jax.devices()
     n = tp * dp * pp

@@ -292,10 +292,10 @@ def _build_beam_fn(engine, st, bw: int, stepwise: bool = False):
             return engine._forward_newest(st, params, s, beam_width=bw)
 
         return (
-            jax.jit(beam_prefill),
-            jax.jit(step, donate_argnums=(2,)),
-            jax.jit(beam_advance, donate_argnums=(2,)),
-            jax.jit(sort_outputs),
+            engine.jit(beam_prefill),
+            engine.jit(step, donate_argnums=(2,)),
+            engine.jit(beam_advance, donate_argnums=(2,)),
+            engine.jit(sort_outputs),
         )
 
     def run(params, inputs):
@@ -314,4 +314,4 @@ def _build_beam_fn(engine, st, bw: int, stepwise: bool = False):
         s = beam_advance(params, inputs, s)
         return sort_outputs(inputs, s)
 
-    return jax.jit(run)
+    return engine.jit(run)

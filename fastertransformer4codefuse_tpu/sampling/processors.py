@@ -1,6 +1,6 @@
 """Batched, jit-safe logit processors and stop criteria.
 
-TPU-native rebuild of the reference's DynamicDecodeLayer pipeline
+A rebuild of the reference's DynamicDecodeLayer pipeline
 (/root/reference/src/fastertransformer/layers/DynamicDecodeLayer.cc:192-497):
 optional-last-tokens mask -> bad-words ban -> penalties -> sampling ->
 stop-words criterion -> length criterion. Every processor takes per-sample

@@ -1,6 +1,6 @@
 """Batched top-k / top-p token selection.
 
-TPU-native rebuild of the reference's sampling layers
+A rebuild of the reference's sampling layers
 (/root/reference/src/fastertransformer/layers/sampling_layers/TopKSamplingLayer.cu,
 TopPSamplingLayer.cu) and their kernels (sampling_topk_kernels.cu,
 sampling_topp_kernels.cu). Semantics follow the reference's batched

@@ -1,4 +1,4 @@
-"""Debug / verification mode — the TPU analog of the reference's forced-sync
+"""Debug / verification mode — the analog of the reference's forced-sync
 kernel checking.
 
 The reference turns ``sync_check_cuda_error()`` from a no-op into a

@@ -2,17 +2,15 @@
 
 ≙ the reference's NVTX ranges (PUSH_RANGE/POP_RANGE around every GEMM and
 attention call, /root/reference/src/fastertransformer/utils/nvtx_utils.h:37)
-viewed in nsys. On TPU the equivalents are jax.profiler named traces viewed in
-xprof/tensorboard, plus a parsed flat summary for headless analysis (the same
-parsing used to find the per-step KV-cache copies during bring-up).
+viewed in nsys. Here the equivalents are jax.profiler named traces, viewed in
+xprof/tensorboard or reduced to a flat per-op summary of the GPU's device
+timelines for headless analysis.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import glob
-import gzip
-import json
 import os
 from typing import Dict, List, Tuple
 
@@ -31,33 +29,42 @@ def trace(log_dir: str):
         yield
 
 
-def summarize_trace(log_dir: str, top: int = 20) -> List[Tuple[str, float, int, str]]:
+def summarize_trace(
+    log_dir: str, top: int = 20, line: str = "XLA Ops"
+) -> List[Tuple[str, float, int, str]]:
     """Flat per-op device-time summary from the newest trace in ``log_dir``.
 
-    Returns [(op_name, total_ms, count, hlo_snippet)] sorted by total time.
+    Reads the ``.xplane.pb`` the profiler writes and sums event durations on
+    the device planes (``/device:GPU:N``). ``line`` picks which timeline of
+    a device plane to read: "XLA Ops" (one event per HLO op) by default; the
+    per-stream kernel lines ("Stream #...") when the plane has no such line.
+    Returns [(name, total_ms, count, line_name)] sorted by total time.
     """
-    paths = sorted(glob.glob(os.path.join(log_dir, "**", "*.trace.json.gz"), recursive=True))
+    from jax.profiler import ProfileData
+
+    paths = sorted(
+        glob.glob(os.path.join(log_dir, "**", "*.xplane.pb"), recursive=True)
+    )
     if not paths:
         raise FileNotFoundError(f"no trace under {log_dir}")
-    with gzip.open(paths[-1]) as f:
-        t = json.load(f)
-    events = t["traceEvents"]
-    pids = {
-        e["pid"]: e["args"].get("name", "")
-        for e in events
-        if e.get("ph") == "M" and e.get("name") == "process_name"
-    }
+    data = ProfileData.from_file(paths[-1])
+    planes = [p for p in data.planes if p.name.startswith("/device:")]
+    if not planes:
+        raise ValueError(f"no device plane in {paths[-1]}")
     durs = collections.Counter()
     cnt = collections.Counter()
-    example: Dict[str, str] = {}
-    for e in events:
-        if e.get("ph") == "X" and "dur" in e and "TPU" in pids.get(e.get("pid"), ""):
-            if e["name"].startswith(("while", "cond", "jit_")):
-                continue
-            durs[e["name"]] += e["dur"]
-            cnt[e["name"]] += 1
-            example.setdefault(e["name"], (e.get("args", {}) or {}).get("long_name", ""))
+    where: Dict[str, str] = {}
+    for plane in planes:
+        lines = list(plane.lines)
+        picked = [ln for ln in lines if ln.name.startswith(line)] or [
+            ln for ln in lines if ln.name.startswith("Stream")
+        ]
+        for ln in picked:
+            for ev in ln.events:
+                durs[ev.name] += ev.duration_ns
+                cnt[ev.name] += 1
+                where.setdefault(ev.name, ln.name)
     return [
-        (name, d / 1000.0, cnt[name], example.get(name, "")[:120])
+        (name, d / 1e6, cnt[name], where[name])
         for name, d in durs.most_common(top)
     ]

@@ -1,6 +1,6 @@
 // Native IO: multithreaded bulk file reads for checkpoint loading.
 //
-// TPU-native analog of the reference's weight-IO layer
+// Analog of the reference's weight-IO layer
 // (/root/reference/src/fastertransformer/utils/memory_utils.cu
 // loadWeightFromBin*): the reference's headline feature #5 is "higher model
 // load speed" (README.md:36); here the Python loader hands every .bin file's

@@ -236,11 +236,13 @@ def test_batching_server_rejects_oversize_and_survives():
 
 
 def test_continuous_batching_flash_mode_matches_oneshot():
-    """flash_decode="on" (sacrifice-last skip writes; flash kernel enabled on
-    TPU) must be output-identical to the default path — on CPU the flash
-    kernel itself is gated off, but the sacrifice-last write path (the part
-    with correctness risk: skipped rows write garbage to slot S-1, which must
-    always be rewritten before becoming attention-valid) fully executes."""
+    """The pool with decode attention through the decode kernel (interpret
+    mode on the CPU; the engine turns it on for the GPU) must be
+    output-identical to the one-shot path — including the sacrifice-last
+    skip writes (skipped rows write garbage to slot S-1, which must always be
+    rewritten before becoming attention-valid)."""
+    from fastertransformer4codefuse_tpu.ops.routes import Routes
+
     cfg = GptNeoXConfig.tiny(head_num=4, size_per_head=8, vocab_size=64)
     params = init_params(cfg, dtype="fp32")
     eng = GptNeoXEngine(cfg, params, RuntimeConfig(dtype="fp32", seq_bucket=8))
@@ -253,10 +255,9 @@ def test_continuous_batching_flash_mode_matches_oneshot():
         n = int(o.sequence_lengths[0, 0])
         refs.append([int(x) for x in o.output_ids[0, 0, :n]])
 
-    cb = ContinuousBatcher(
-        eng, max_slots=2, max_seq_len=32, prompt_bucket=8,
-        flash_decode="on",
-    )
+    # the pool's programs are traced on its first tick, under these routes
+    eng.routes = Routes(flash_decode=True, interpret=True)
+    cb = ContinuousBatcher(eng, max_slots=2, max_seq_len=32, prompt_bucket=8)
     uids = [cb.submit(p, ol, top_k=1) for p, ol in zip(prompts, out_lens)]
     done = cb.run(max_ticks=200)
     for uid, ref in zip(uids, refs):

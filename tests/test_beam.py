@@ -141,7 +141,7 @@ def test_beam_gqa_llama_end_to_end():
     """Beam search over a GQA (nKV < nH) LLaMA-family model — the reference
     decode kernel handles beams for any head layout via its cache_indir +
     kv_head_num params (decoder_masked_multihead_attention.h); this pins the
-    TPU indirection formulation end-to-end including teacher-forced rescoring
+    indirection formulation end-to-end including teacher-forced rescoring
     of every returned hypothesis."""
     import jax
     import jax.numpy as jnp

@@ -258,8 +258,7 @@ def test_int4_lm_head_matches_dequant():
 
 def test_groupwise_transposed_head_matches_dequant():
     """Group-wise-scale transposed head: logits equal the explicit group-
-    dequantized GEMM (rides the stacked group kernel as a 1-layer stack on
-    TPU; scale-folded XLA dot elsewhere)."""
+    dequantized GEMM (the scale-folded XLA dot)."""
     from fastertransformer4codefuse_tpu.ckpt.quantize import quantize_array
     from fastertransformer4codefuse_tpu.ops.linear import (
         quantized_matmul_transposed_head,

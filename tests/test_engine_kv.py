@@ -2,6 +2,7 @@
 (feature beyond the reference: it has no KV quantization, SURVEY §5
 long-context section)."""
 import numpy as np
+import pytest
 
 from fastertransformer4codefuse_tpu import (
     GptNeoXConfig,
@@ -111,7 +112,6 @@ def test_int4_kv_flash_decode_matches_xla():
     for pos in (15, 500):
         positions = jnp.asarray([pos], jnp.int32)
         valid = jnp.arange(S)[None, :] <= positions[:, None]
-        kvc.set_flash_decode(False)
         ref = kvc.attend_decode(cache, jnp.int32(1), q, valid, sm, positions=positions)
         out = flash_decode_stacked(
             q, cache["k4"], cache["k_s"], cache["v4"], cache["v_s"],
@@ -142,3 +142,34 @@ def test_cum_log_probs_optional_contract():
         return_cum_log_probs=True,
     )
     np.testing.assert_array_equal(off_s.output_ids, on_s.output_ids)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_gpu_route_gates(quantized, monkeypatch):
+    """On a GPU backend the engine turns on the decode kernel and the int8
+    GEMV, and cuDNN prefill only behind float projections; on the CPU and
+    under a mesh they stay off. Each engine keeps its own choice."""
+    import jax
+
+    from fastertransformer4codefuse_tpu.ckpt.quantize import quantize_params
+    from fastertransformer4codefuse_tpu.ops import routes
+    from fastertransformer4codefuse_tpu.parallel.sharding import build_mesh
+
+    cfg = GptNeoXConfig.tiny()
+    params = init_params(cfg, dtype="fp32")
+    if quantized:
+        params = quantize_params(params)
+    cpu = GptNeoXEngine(cfg, params, RuntimeConfig(dtype="fp32"))
+    assert cpu.routes == routes.Routes()
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    gpu = GptNeoXEngine(cfg, params, RuntimeConfig(dtype="fp32"))
+    assert gpu.routes.flash_decode and gpu.routes.int8_gemv
+    assert gpu.routes.flash_prefill is (not quantized)
+    off = GptNeoXEngine(cfg, params, RuntimeConfig(
+        dtype="fp32", use_flash_decode=False, use_flash_prefill=False))
+    assert not off.routes.flash_decode and not off.routes.flash_prefill
+    tp = GptNeoXEngine(cfg, params, RuntimeConfig(dtype="fp32"), mesh=build_mesh(tp=2))
+    # custom calls GSPMD cannot split
+    assert not tp.routes.flash_decode and not tp.routes.int8_gemv
+    assert gpu.routes.flash_decode and cpu.routes == routes.Routes()
+    assert routes.current() == routes.Routes()  # nothing leaks outside a trace

@@ -1,9 +1,9 @@
-"""Interpret-mode coverage of the Pallas flash-decode kernel.
+"""Interpret-mode coverage of the Triton decode-attention kernel.
 
-Asserts the seq-chunked online-softmax kernel (ops/flash_decode.py) matches
-the XLA attend_decode path on int8 and float caches, across positions that
-exercise the DMA-clamp index_map (chunks wholly past ``pos`` map to the last
-valid chunk; their data must never leak into the output). Reference behavior
+Asserts the chunked online-softmax kernel (ops/flash_decode.py) matches the
+XLA attend_decode path on int8 and float caches, across positions that
+exercise the per-row loop bound (chunks wholly past ``pos`` are never read;
+their data must never leak into the output). Reference behavior
 being matched: the fused masked-MHA decode kernel
 (/root/reference/src/fastertransformer/kernels/decoder_masked_multihead_attention.cu),
 which likewise reads only the valid [0, tlength] prefix of the cache.
@@ -53,7 +53,6 @@ def test_flash_decode_matches_xla(B, nH, dh, S, quantized, pos):
     positions = jnp.asarray([(pos + 31 * i) % S for i in range(B)], jnp.int32)
     valid = jnp.arange(S)[None, :] <= positions[:, None]
 
-    kvc.set_flash_decode(False)
     ref = kvc.attend_decode(cache, jnp.int32(1), q, valid, sm, positions=positions)
     out = flash_decode_stacked(
         q, cache["k"], cache.get("k_s"), cache["v"], cache.get("v_s"),
@@ -89,6 +88,30 @@ def test_flash_decode_clamp_ignores_stale_tail():
     assert jnp.array_equal(clean, dirty), "stale tail leaked into flash-decode output"
 
 
+def _bruteforce_beam(cache, layer, q, valid, sm, indir, bw):
+    """float64 numpy: row r's position s reads physical row
+    group(r)*bw + indir[r, s] of the cache."""
+    k = np.asarray(cache["k"][layer], np.float64)
+    v = np.asarray(cache["v"][layer], np.float64)
+    if "k_s" in cache:
+        k = k * np.asarray(cache["k_s"][layer], np.float64)[..., None]
+        v = v * np.asarray(cache["v_s"][layer], np.float64)[..., None]
+    qf = np.asarray(q, np.float64)
+    BB, nH, dh = qf.shape
+    S = k.shape[2]
+    out = np.zeros((BB, nH, dh))
+    for r in range(BB):
+        src = (r // bw) * bw + np.asarray(indir[r])  # [S] physical rows
+        kr = k[src, :, np.arange(S)]  # [S, nH, dh]
+        vr = v[src, :, np.arange(S)]
+        sc = np.einsum("hd,shd->hs", qf[r], kr) * sm
+        sc = np.where(np.asarray(valid[r])[None, :], sc, -np.inf)
+        p = np.exp(sc - sc.max(-1, keepdims=True))
+        p /= p.sum(-1, keepdims=True)
+        out[r] = np.einsum("hs,shd->hd", p, vr)
+    return out
+
+
 @pytest.mark.parametrize(
     "B,bw,nH,dh,S,quantized",
     [
@@ -98,32 +121,25 @@ def test_flash_decode_clamp_ignores_stale_tail():
     ],
 )
 def test_flash_decode_beam_matches_xla(B, bw, nH, dh, S, quantized):
-    """Interpret-mode: the grouped beam kernel (in-kernel cache indirection)
-    must match attend_decode_beam's all-pairs XLA formulation."""
-    from fastertransformer4codefuse_tpu.ops.flash_decode import (
-        flash_decode_beam_stacked,
-    )
-
+    """The XLA beam path (all-pairs scores + one-hot indirection selects)
+    must match a brute-force float64 gather of each beam's history, at the
+    shapes the removed beam kernel was tested at."""
     rng = np.random.default_rng(1)
     L = 2
     BB = B * bw
     cache = _make_cache(rng, L, BB, nH, S, dh, quantized)
-    q = jnp.asarray(rng.standard_normal((BB, nH, dh)), jnp.bfloat16)
+    if not quantized:
+        cache = {k: v.astype(jnp.float32) for k, v in cache.items()}
+    q = jnp.asarray(rng.standard_normal((BB, nH, dh)), jnp.float32)
     # heterogeneous per-beam lengths exercise the per-row causal bounds
     positions = jnp.asarray(rng.integers(S // 4, S - 1, (BB,)), jnp.int32)
     valid = jnp.arange(S)[None, :] <= positions[:, None]
     indir = jnp.asarray(rng.integers(0, bw, (BB, S)), jnp.int32)
-    layer = jnp.int32(1)
+    layer = 1
 
-    want = kvc.attend_decode_beam(cache, layer, q, valid, 0.11, indir, bw)
-    got = flash_decode_beam_stacked(
-        q, cache["k"], cache.get("k_s"), cache["v"], cache.get("v_s"),
-        layer, positions, indir, bw, sm_scale=0.11, interpret=True,
-    )
-    np.testing.assert_allclose(
-        np.asarray(got, np.float32), np.asarray(want, np.float32),
-        rtol=3e-2, atol=3e-2,
-    )
+    got = kvc.attend_decode_beam(cache, jnp.int32(layer), q, valid, 0.11, indir, bw)
+    want = _bruteforce_beam(cache, layer, q, valid, 0.11, indir, bw)
+    np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize(
@@ -153,7 +169,6 @@ def test_flash_decode_gqa_matches_xla(B, nH, nKV, dh, S, quantized, pos):
     positions = jnp.asarray([(pos + 17 * i) % S for i in range(B)], jnp.int32)
     valid = jnp.arange(S)[None, :] <= positions[:, None]
 
-    kvc.set_flash_decode(False)
     ref = kvc.attend_decode(cache, jnp.int32(1), q, valid, sm, positions=positions)
     out = flash_decode_stacked(
         q, cache["k"], cache.get("k_s"), cache["v"], cache.get("v_s"),
@@ -161,3 +176,72 @@ def test_flash_decode_gqa_matches_xla(B, nH, nKV, dh, S, quantized, pos):
     )
     err = jnp.max(jnp.abs(out.astype(jnp.float32) - ref.astype(jnp.float32)))
     assert float(err) < 0.05, float(err)
+
+
+@pytest.mark.parametrize(
+    "S,dh,ps,ok",
+    [
+        (1152, 128, 0, True),  # the 13B one-shot cache: 1024 + 128
+        (2048, 128, 256, True),  # the served paged pool
+        (640, 256, 0, True),
+        (13, 128, 0, False),  # a tiny engine's odd cache length
+        (1024, 80, 0, False),  # head dim not a power of two
+        (2048, 128, 8, False),  # pages smaller than one 16-position chunk
+    ],
+)
+def test_kernel_choice_gate(S, dh, ps, ok):
+    """attend_decode takes the kernel only for shapes it tiles."""
+    from fastertransformer4codefuse_tpu.ops.flash_decode import supported
+
+    assert supported(S, dh, ps) is ok
+
+
+def test_int8_slab_read_as_int16_words():
+    """The int16 view of an int8 slab keeps every byte: lane j of word i is
+    element 2i + j, sign-extended."""
+    from fastertransformer4codefuse_tpu.ops.flash_decode import _bits, _words
+
+    x = jnp.asarray(np.arange(-128, 128, dtype=np.int8).reshape(2, 128))
+    w = _words(x)
+    assert w.dtype == jnp.int16 and w.shape == (2, 64)
+    lo, hi = _bits(w, 0, 8), _bits(w, 8, 8)
+    np.testing.assert_array_equal(np.asarray(lo), np.asarray(x[:, 0::2], np.float32))
+    np.testing.assert_array_equal(np.asarray(hi), np.asarray(x[:, 1::2], np.float32))
+
+
+@pytest.mark.parametrize("in_pool", [False, True])
+def test_dense_slab_takes_kernel_under_route(in_pool, monkeypatch):
+    """With the engine's decode route on, a dense slab takes the kernel in
+    the one-shot engine and in a slot pool's tick alike, and the tokens equal
+    the XLA path's."""
+    from fastertransformer4codefuse_tpu import (
+        ContinuousBatcher, GptNeoXConfig, GptNeoXEngine, RuntimeConfig, init_params,
+    )
+    from fastertransformer4codefuse_tpu.ops import flash_decode as fd
+    from fastertransformer4codefuse_tpu.ops.routes import Routes
+
+    calls = []
+    real = fd.flash_decode_stacked
+    monkeypatch.setattr(
+        fd, "flash_decode_stacked", lambda *a, **k: calls.append(1) or real(*a, **k)
+    )
+    cfg = GptNeoXConfig.tiny(head_num=4, size_per_head=16, vocab_size=64)
+    params = init_params(cfg, dtype="fp32")
+    prompts, out_len = [[3, 4, 5, 6, 7], [9, 8]], 16  # one-shot cache: 16 + 16
+
+    def run(eng):
+        if not in_pool:
+            out = eng.generate(prompts, output_len=out_len, top_k=1)
+            return out.output_ids[:, 0].tolist()
+        cb = ContinuousBatcher(eng, max_slots=2, max_seq_len=32, prompt_bucket=8)
+        uids = [cb.submit(p, out_len, top_k=1) for p in prompts]
+        done = cb.run(max_ticks=100)
+        return [done[u].output_ids for u in uids]
+
+    rt = RuntimeConfig(dtype="fp32", seq_bucket=16)
+    want = run(GptNeoXEngine(cfg, params, rt))
+    assert not calls
+    eng = GptNeoXEngine(cfg, params, rt)
+    eng.routes = Routes(flash_decode=True, interpret=True)
+    assert run(eng) == want
+    assert calls

@@ -278,10 +278,11 @@ def test_flash_decode_paged_packed_interpret_parity(kind):
 @pytest.mark.parametrize("kind", [jnp.int8, "int4", jnp.float32])
 @pytest.mark.parametrize("g", [1, 2])
 def test_flash_chunk_paged_interpret_parity(kind, g):
-    """The multi-query paged chunk kernel (per-row consecutive causal
-    bounds, GQA in-kernel) vs the XLA page-gather path."""
-    from fastertransformer4codefuse_tpu.ops.flash_decode import flash_chunk_paged
-    from fastertransformer4codefuse_tpu.engine.paged_kv import _slab
+    """Chunked-prefill attention over a PAGED pool (the XLA page-gather path,
+    GQA folded into the query axis) against a brute-force float64 reference
+    built from the same written K/V, at the shapes the removed paged chunk
+    kernel was tested at (page 256, a chunk straddling a page edge)."""
+    from fastertransformer4codefuse_tpu.engine.paged_kv import gather_layer_dense
 
     cfg = GptNeoXConfig.tiny(
         head_num=2 * g, size_per_head=128, layer_num=1,
@@ -297,7 +298,6 @@ def test_flash_chunk_paged_interpret_parity(kind, g):
     ids = rng.permutation(np.arange(1, nb * npg + 2))[: nb * npg]
     pg["pt"] = jnp.asarray(ids.reshape(nb, npg).astype(np.int32))
     nKV, dh = cfg.kv_heads, cfg.size_per_head
-    # fill a prefix, then write the chunk itself (attend sees both)
     starts = jnp.asarray([248, 512], jnp.int32)  # one straddles a page edge
     for p in range(int(starts.max())):
         k = jnp.asarray(rng.randn(nb, 1, nKV, dh), jnp.float32)
@@ -310,23 +310,27 @@ def test_flash_chunk_paged_interpret_parity(kind, g):
     q = jnp.asarray(rng.randn(nb, C, cfg.head_num, dh), jnp.float32)
     posc = starts[:, None] + jnp.arange(C)[None, :]
     valid = jnp.arange(Sl)[None, None, :] <= posc[:, :, None]
-    want = kvc.attend_chunk(pg, 0, q, valid, 0.1)  # gather path (no positions)
-    got = flash_chunk_paged(
-        q, _slab(pg, "pk"), pg.get("pk_s"), _slab(pg, "pv"), pg.get("pv_s"),
-        jnp.int32(0), starts, pg["pt"], sm_scale=0.1, interpret=True,
-    )
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), atol=3e-2, rtol=3e-2
-    )
+    got = np.asarray(kvc.attend_chunk(pg, 0, q, valid, 0.1), np.float64)
+
+    dense = gather_layer_dense(pg, 0)  # dequantize the stored values
+    kd = np.asarray(dense["k"], np.float64)
+    vd = np.asarray(dense["v"], np.float64)
+    if "k_s" in dense:
+        kd = kd * np.asarray(dense["k_s"], np.float64)[..., None]
+        vd = vd * np.asarray(dense["v_s"], np.float64)[..., None]
+    qf = np.asarray(q, np.float64).reshape(nb, C, nKV, g, dh)
+    sc = np.einsum("bckgd,bksd->bckgs", qf, kd) * 0.1
+    sc = np.where(np.asarray(valid)[:, :, None, None, :], sc, -np.inf)
+    p = np.exp(sc - sc.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    want = np.einsum("bckgs,bksd->bckgd", p, vd).reshape(nb, C, cfg.head_num, dh)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 def test_paged_small_packed_pages_fall_back_not_crash():
-    """Packed pools with page_size < 256 must take the XLA path (review
-    finding: the kernel's sublane-tile assert would otherwise kill the
-    serving pool at runtime). PS=8 here — attends must just work."""
-    # ps=128 < 256 with logical S=512 >= the flash gate: only the new
-    # packed-page-size condition stands between the dispatch and the
-    # kernel's assert
+    """Packed pools with small pages (128 positions) route through the decode
+    kernel (interpret mode here) and the chunk path must just work — and
+    agree with the XLA gather path."""
     cfg = GptNeoXConfig.tiny(head_num=2, size_per_head=128, layer_num=1)
     ps, npg, nb = 128, 4, 2
     Sl = ps * npg
@@ -344,16 +348,15 @@ def test_paged_small_packed_pages_fall_back_not_crash():
         pg = kvc.write_decode(pg, 0, k, v, jnp.minimum(posn, p))
     q = jnp.asarray(rng.randn(nb, cfg.head_num, dh), jnp.float32)
     valid = jnp.arange(Sl)[None, :] <= posn[:, None]
-    kvc.set_flash_decode(True)
-    try:
+    want = kvc.attend_decode(pg, 0, q, valid, 0.25, positions=posn)
+    from fastertransformer4codefuse_tpu.ops import routes
+
+    with routes.use(routes.Routes(flash_decode=True, interpret=True)):
         out = kvc.attend_decode(pg, 0, q, valid, 0.25, positions=posn)
-        outc = kvc.attend_chunk(
-            pg, 0, q[:, None], valid[:, None, :], 0.25, positions=posn
-        )
-    finally:
-        kvc.set_flash_decode(False)
+        outc = kvc.attend_chunk(pg, 0, q[:, None], valid[:, None, :], 0.25)
     assert np.isfinite(np.asarray(out)).all()
     assert np.isfinite(np.asarray(outc)).all()
+    np.testing.assert_allclose(np.asarray(out), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
 def test_paged_unknown_dtype_string_rejected():

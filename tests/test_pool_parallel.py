@@ -244,3 +244,60 @@ def test_spec_pool_tp4_matches_unsharded_oneshot():
     spec = cb._state["cache"]["k"].sharding.spec
     assert spec[2] == "tp", f"spec-pool KV slab not head-sharded: {spec}"
     _assert_parity(_run_pool(cb), refs)
+
+
+@pytest.mark.parametrize("int8_mode,kv,tp,off", [
+    (1, None, 2, True), (1, "int8", 2, True), (0, "int8", 2, False), (1, "int8", 0, False),
+])
+def test_sharded_int8_engine_compiles_without_triton_gemm(int8_mode, kv, tp, off, monkeypatch):
+    """On the GPU a sharded engine with int8 weights compiles its programs
+    without XLA's Triton GEMMs (they computed NaN in the chunked prefill of a
+    TP=4 engine on the cards), and serves pools under the mesh; one-card
+    engines and bf16 weights with an int8 KV cache keep the default compiler
+    options."""
+    cfg = GptNeoXConfig.tiny(head_num=4, size_per_head=8, vocab_size=64)
+    params = init_params(cfg, dtype="fp32")
+    if int8_mode:
+        params = quantize_params(params)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    eng = GptNeoXEngine(
+        cfg, params,
+        RuntimeConfig(dtype="fp32", int8_mode=int8_mode, kv_cache_dtype=kv, seq_bucket=8),
+        mesh=build_mesh(tp=tp) if tp else None,
+    )
+    want = {"xla_gpu_enable_triton_gemm": False} if off else {}
+    assert eng.compiler_options == want
+    if tp:
+        ContinuousBatcher(eng, max_slots=2, max_seq_len=32, prompt_bucket=8)
+
+
+@pytest.mark.parametrize("mode", ["single", "batched", "pool"])
+def test_speculation_under_mesh_refused_on_gpu(mode, monkeypatch):
+    """Speculative decoding (one-shot and pooled) was not run under a mesh on
+    the cards: refused under a multi-device mesh on the GPU, served on one
+    card."""
+    import jax
+
+    from fastertransformer4codefuse_tpu.engine.spec_pool import SpecPool
+    from fastertransformer4codefuse_tpu.engine.speculative import (
+        speculative_generate, speculative_generate_batched,
+    )
+
+    cfg = _cfg()
+    params = init_params(cfg, dtype="fp32")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    one = GptNeoXEngine(cfg, params, RuntimeConfig(dtype="fp32", seq_bucket=8))
+    tp = GptNeoXEngine(cfg, params, RuntimeConfig(dtype="fp32", seq_bucket=8),
+                       mesh=build_mesh(tp=2))
+    for eng in (one, tp):
+        run = {
+            "single": lambda: speculative_generate(eng, PROMPTS[0], 0),
+            "batched": lambda: speculative_generate_batched(eng, [PROMPTS[0]], 0),
+            "pool": lambda: SpecPool(eng, k=2, ngram=2, max_slots=2, max_seq_len=32,
+                                     prompt_bucket=8),
+        }[mode]
+        if eng is tp:
+            with pytest.raises(NotImplementedError):
+                run()
+        else:
+            run()

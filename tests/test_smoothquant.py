@@ -91,7 +91,6 @@ def test_act_int8_engine_matches_weight_only_closely():
         cfg, qp,
         RuntimeConfig(dtype="fp32", int8_mode=1, act_int8=True, seq_bucket=8),
     ).generate(prompt, output_len=6, top_k=1, return_cum_log_probs=True)
-    lin.set_act_int8(False)  # don't leak into other tests
     assert out.output_ids.shape == ref.output_ids.shape
     # same greedy continuation on this tame model; cum_log_probs close
     np.testing.assert_array_equal(ref.output_ids, out.output_ids)
@@ -119,16 +118,14 @@ def test_act_int8_decode_width_stays_weight_only():
         eng.generate([list(range(3, 20))], output_len=4, top_k=1)
     finally:
         lin.w8a8_matmul = real
-        lin.set_act_int8(False)
     assert calls, "prefill should have used W8A8"
     assert min(calls) >= lin._A8_MIN_M  # no decode-width (M=1) calls
 
 
 def test_w4_stays_weight_only_under_act_int8():
-    """int4 weights must NOT take the A8 path even with act_int8=True —
-    measured negative result: XLA materializes the unpacked [K, N] weight
-    per layer instead of fusing the nibble shifts into the int8 dot
-    (335.9 vs 216.1 ms on the 13B 1024-token prefill; see ops/linear.py)."""
+    """int4 weights must NOT take the A8 path even with act_int8=True: the
+    nibbles would be unpacked into a full [K, N] int8 copy per layer before
+    the int8 dot (see ops/linear.py)."""
     calls = []
     real = lin.w8a8_matmul
     lin.w8a8_matmul = lambda *a, **k: (calls.append(1), real(*a, **k))[1]
@@ -144,5 +141,4 @@ def test_w4_stays_weight_only_under_act_int8():
         eng.generate([list(range(3, 20))], output_len=3, top_k=1)
     finally:
         lin.w8a8_matmul = real
-        lin.set_act_int8(False)
     assert not calls

@@ -15,7 +15,7 @@ Cold cache: /proc/sys/vm/drop_caches is written between runs when permitted
 (we usually run as root); otherwise numbers are page-cache-warm and labeled.
 
 Usage:
-  python tools/load_bench.py [--dir /tmp/ftcf_load_bench] [--runs 2]
+  python tools/load_bench.py [--dir chiprun_out/load_bench] [--runs 2]
   python tools/load_bench.py --configs q4,q8   # skip the 25GB fp dir
 """
 from __future__ import annotations
@@ -154,7 +154,7 @@ def measure(d: str, kind: str, native_io: bool, group_size: int):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="/tmp/ftcf_load_bench")
+    ap.add_argument("--dir", default="chiprun_out/load_bench")
     ap.add_argument("--configs", default="q4,q8,fp")
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--group_size", type=int, default=128)

@@ -1,4 +1,4 @@
-"""Profile the 13B decode step on the real chip via xprof trace summary.
+"""Profile the 13B decode step on the card via a profiler trace summary.
 
 Prints the flat per-op device-time table for a short greedy run, the measured
 per-step time, and the derived tokens/sec. Usage:
@@ -25,7 +25,7 @@ def main():
     ap.add_argument("--in", dest="in_len", type=int, default=1024)
     ap.add_argument("--out", dest="out_len", type=int, default=64)
     ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--trace-dir", default="/tmp/ftcf_trace")
+    ap.add_argument("--trace-dir", default="chiprun_out/trace_decode")
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--no-trace", action="store_true")
     args = ap.parse_args()

@@ -12,7 +12,7 @@ zero-egress environment (random weights lack the per-channel outliers that
 make quantization hard; the reference's own quality claim is HumanEval on
 trained weights, README.md:37-39).
 
-  python tools/quality_table.py --ckpt /tmp/ftcf_proxy.npz --out QUALITY.md
+  python tools/quality_table.py --ckpt chiprun_out/ftcf_proxy.npz --out QUALITY.md
 """
 import argparse
 import os
@@ -27,7 +27,7 @@ from train_proxy import config_of_ckpt, load_params, proxy_config
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", default="/tmp/ftcf_proxy.npz")
+    ap.add_argument("--ckpt", default="chiprun_out/ftcf_proxy.npz")
     ap.add_argument("--out", default="")
     ap.add_argument("--max-heldout", type=int, default=16384)
     ap.add_argument("--prompts", type=int, default=8)
@@ -118,14 +118,13 @@ def main():
     dec_fp = eval_decode_nll(cfg, params, dec_ids, jnp.bfloat16)
     print(f"decode-path fp32/bf16KV NLL baseline: {dec_fp:.4f}", flush=True)
 
-    from fastertransformer4codefuse_tpu.ops import linear as lin
+    from fastertransformer4codefuse_tpu.ops import routes
 
     rows = []
     nll_fp = None
     for name, (p, mode, kv) in variants.items():
         a8 = "W8A8" in name
-        lin.set_act_int8(a8)
-        try:
+        with routes.use(routes.Routes(act_int8=a8)):
             nll = eval_nll(cfg, p, nll_ids)
             if nll_fp is None:
                 nll_fp = nll
@@ -135,8 +134,6 @@ def main():
                     eng_fp, engine(p, mode, kv, a8), prompts,
                     output_len=args.gen_len,
                 )
-        finally:
-            lin.set_act_int8(False)
         dec_d = None
         if kv is not None:
             kv_dt = jnp.int8 if kv == "int8" else kv

@@ -11,7 +11,7 @@ NLL deltas behave like a real LM's.
 The reference has no analog (it ships no trainer); this exists purely to
 put numbers behind the quantization-quality claims (see QUALITY.md).
 
-  python tools/train_proxy.py --steps 600 --out /tmp/ftcf_proxy.npz
+  python tools/train_proxy.py --steps 600 --out chiprun_out/ftcf_proxy.npz
 """
 import argparse
 import glob
@@ -128,7 +128,7 @@ def main():
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--out", default="/tmp/ftcf_proxy.npz")
+    ap.add_argument("--out", default="chiprun_out/ftcf_proxy.npz")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--heads", type=int, default=8)
     ap.add_argument("--dh", type=int, default=64)
